@@ -1,0 +1,201 @@
+"""End-to-end stereo depth pipeline: rectify -> SGBM -> reproject -> stats.
+
+Port of ``stereo_depth_ruler_tpu/pipeline.py``. On a CUDA device the
+matcher runs the three CUDA kernels of ``ops/sgbm_cuda.py``; on the CPU it
+runs their plain versions. A device named ``"cuda"`` on a machine without
+CUDA raises: the pipeline never moves to the CPU by itself.
+
+Not ported yet, and rejected with NotImplementedError when configured: the
+speckle filter, the right matcher + WLS filter (``use_wls=True`` with
+``lr_mode="right_matcher"``) and the shared-cost pair (``pair_mode=
+"shared"``). ``lr_mode="fast"`` is the in-matcher LR check.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stereo_depth_ruler_tpu.calib.config import StereoRig
+from stereo_depth_ruler_tpu.ops.sgbm_ref import SGBMParams
+
+from .metrics import batch_frame_stats
+from .ops.remap import RemapGrid, build_remap_grids, remap_bilinear
+from .ops.reproject import reproject_to_3d
+from .ops.sgbm import SPECKLE_QUEUED
+from .ops.sgbm_cuda import sgbm_cuda
+
+__all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x"]
+
+
+def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) BGR -> (..., H, W) gray, OpenCV weights."""
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    return 0.114 * b + 0.587 * g + 0.299 * r
+
+
+def downscale2x(img: torch.Tensor) -> torch.Tensor:
+    """INTER_AREA 0.5x == exact 2x2 mean."""
+    h, w = img.shape[-2] // 2 * 2, img.shape[-1] // 2 * 2
+    img = img[..., :h, :w]
+    s = tuple(img.shape)
+    return img.reshape(s[:-2] + (h // 2, 2, w // 2, 2)).mean(dim=(-3, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline configuration, the fields and defaults of the JAX package's
+    PipelineConfig, so one set of values configures both packages.
+    ``matcher`` and ``wls_kernel`` choose among the JAX package's
+    implementations; the port chooses by device (kernels on CUDA, plain
+    versions on the CPU) and does not read them."""
+    sgbm: SGBMParams = SGBMParams()
+    downscale: int = 2            # 1 = full res; 2 = reference behavior
+    use_wls: bool = True
+    lr_mode: str = "right_matcher"  # "right_matcher" | "fast" | "none"
+    quirk_compat: bool = False    # full-res Q on half-res disparity
+    handle_missing: bool = False
+    z_max_mm: float = 12000.0
+    matcher: str = "auto"         # "auto" | "pallas" | "jnp"
+    pair_mode: str = "stacked"    # "stacked" | "shared"
+    wls_kernel: str = "auto"      # "auto" | "pallas" | "jnp"
+    with_stats: bool = True       # per-frame stats reduced on the device
+    remap_precision: str = "u8"   # "u8" (rounds/clips to 0-255) | "f32"
+
+
+def _check_supported(cfg: PipelineConfig) -> None:
+    if cfg.lr_mode not in ("right_matcher", "fast", "none"):
+        raise ValueError(f"unknown lr_mode {cfg.lr_mode!r}")
+    if cfg.use_wls and cfg.lr_mode == "right_matcher":
+        raise NotImplementedError(
+            "the right matcher + WLS filter is not ported yet (its kernels, "
+            "the FGS pass and the shift gather, are queued); use "
+            "use_wls=False or lr_mode='fast'")
+    if cfg.pair_mode != "stacked":
+        raise NotImplementedError(
+            f"pair_mode={cfg.pair_mode!r} is not ported yet; use 'stacked'")
+    if cfg.sgbm.speckle_window_size > 0:
+        raise NotImplementedError(SPECKLE_QUEUED)
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device must be a CPU or CUDA device, got {device!r}")
+    return dev
+
+
+def _log2(n: int) -> int:
+    k = 0
+    while (1 << k) < n:
+        k += 1
+    if (1 << k) != n:
+        raise ValueError(f"downscale must be a power of 2, got {n}")
+    return k
+
+
+class StereoPipeline:
+    """Holds the rectification grids on the device and processes frame
+    pairs or batches of them.
+
+    ``grids`` = (left, right) RemapGrid takes the place of the grids built
+    from ``rig``, e.g. the JAX package's tables carried across with
+    ``RemapGrid.from_arrays``."""
+
+    def __init__(self, rig: StereoRig, config: PipelineConfig = PipelineConfig(),
+                 rectify: bool = True, device="cuda",
+                 grids: Optional[Tuple[RemapGrid, RemapGrid]] = None):
+        _check_supported(config)
+        self.rig = rig
+        self.config = config
+        self.rectify = rectify
+        self.device = _resolve_device(device)
+        self._range_warned = False
+        self._n_down = _log2(config.downscale)
+        if not rectify:
+            self.grid_l = self.grid_r = None
+        elif grids is not None:
+            self.grid_l, self.grid_r = grids
+        else:
+            self.grid_l, self.grid_r = build_remap_grids(rig, self.device)
+
+    def _forward(self, left: torch.Tensor, right: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """(N, H, W[, 3]) pair batch -> dict of (N, ...) tensors."""
+        cfg = self.config
+        # upload in the input's own dtype (uint8 frames are a quarter of
+        # the float32 bytes) and convert on the device: a CPU->CUDA copy
+        # that changes dtype converts on the host first
+        left = left.to(self.device).to(torch.float32)
+        right = right.to(self.device).to(torch.float32)
+        if left.dim() == 4:  # color input
+            left = bgr_to_gray(left)
+            right = bgr_to_gray(right)
+        if self.rectify:
+            left = remap_bilinear(left, self.grid_l, cfg.remap_precision)
+            right = remap_bilinear(right, self.grid_r, cfg.remap_precision)
+        lrect, rrect = left, right
+        for _ in range(self._n_down):
+            left = downscale2x(left)
+            right = downscale2x(right)
+        disp = sgbm_cuda(left.contiguous(), right.contiguous(), cfg.sgbm,
+                         apply_lr=cfg.lr_mode != "none")
+        conf = (disp >= 0).to(torch.float32)
+        xyz = reproject_to_3d(disp, self.rig.Q, scale=1.0 / cfg.downscale,
+                              quirk_compat=cfg.quirk_compat,
+                              handle_missing=cfg.handle_missing,
+                              layout="chw")
+        out = {"disparity": disp, "xyz": xyz, "confidence": conf,
+               "left_rectified": lrect, "right_rectified": rrect}
+        if cfg.with_stats:
+            out["frame_stats"] = batch_frame_stats(
+                disp, xyz[..., 2, :, :], skip_cols=cfg.sgbm.num_disparities)
+        return out
+
+    # -- public API --------------------------------------------------------
+    @staticmethod
+    def xyz_hwc(xyz_chw: torch.Tensor) -> np.ndarray:
+        """(..., 3, H, W) xyz -> host (..., H, W, 3) numpy view."""
+        return np.moveaxis(xyz_chw.detach().cpu().numpy(), -3, -1)
+
+    def process_pair(self, left, right) -> Dict[str, torch.Tensor]:
+        """One frame pair (H, W[, 3]) -> disparity at matcher resolution,
+        xyz (3, H, W) in mm (xyz_hwc gives the (H, W, 3) view), confidence,
+        the rectified eyes and, with ``with_stats``, the (3,) stats."""
+        self._check_input_range(left)
+        out = self._forward(torch.as_tensor(left)[None],
+                            torch.as_tensor(right)[None])
+        return {k: v[0] for k, v in out.items()}
+
+    def process_batch(self, lefts, rights) -> Dict[str, torch.Tensor]:
+        """(N, H, W[, 3]) batches -> the outputs of process_pair, each with
+        a leading N."""
+        self._check_input_range(lefts)
+        return self._forward(torch.as_tensor(lefts), torch.as_tensor(rights))
+
+    def process_sbs(self, frame) -> Dict[str, torch.Tensor]:
+        """Side-by-side frame (H, 2W[, 3]) -> split at W, then process."""
+        w = self.rig.width
+        return self.process_pair(frame[:, :w], frame[:, w:2 * w])
+
+    def _check_input_range(self, arr) -> None:
+        """remap_precision='u8' rounds/clips rectified samples to 0-255, so
+        normalized (0..1) float input would be destroyed: warn once."""
+        if (self.config.remap_precision != "u8" or not self.rectify
+                or self._range_warned):
+            return
+        if isinstance(arr, np.ndarray) and arr.dtype.kind == "f" \
+                and arr.size and float(arr.max()) <= 1.0:
+            warnings.warn(
+                "remap_precision='u8' expects 0-255 inputs but got float "
+                "data with max <= 1.0 — values will be quantized to "
+                "{0, 1}. Scale to 0-255 or set remap_precision='f32'.",
+                stacklevel=3)
+            self._range_warned = True

@@ -1,0 +1,105 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+The sources in ``ops/csrc/*.cu`` expose a plain C interface (no PyTorch
+headers), so one ``nvcc`` call builds them in seconds. The shared library is
+built on first use into ``stereo_depth_ruler_tpu_torch/_build/``, named by a
+hash of the sources and flags, so a checkout with nothing built builds
+everything the first time a kernel is launched. There is no fallback: a
+missing ``nvcc`` or a failed build raises.
+
+Pointers and the stream are passed as ``c_void_p`` (a plain Python int would
+be cut to 32 bits); every entry returns ``cudaGetLastError()``, and
+``check`` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "ops" / "csrc"
+BUILD_DIR = _PKG / "_build"
+# No --use_fast_math: division and rintf must stay IEEE.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # lt, rt, out, B, H, W, D, md, block, stream
+    "sdr_cost_box": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # C, S, B, H, W, D, dy, dx, P1, P2, acc, stream
+    "sdr_sgm_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # S, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr, stream
+    "sdr_wta_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build() -> Path:
+    """Build the kernel library if it is not built yet; return its path.
+    The compiler's register and shared-memory report goes to a ``.log``
+    file beside the library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    lib = BUILD_DIR / f"libsdr_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+def load():
+    """The loaded kernel library (built on first use), argtypes set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.sdr_error_string.argtypes = [ctypes.c_int]
+        lib.sdr_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a kernel entry returned a CUDA error code."""
+    if rc != 0:
+        msg = load().sdr_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
