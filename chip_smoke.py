@@ -6,22 +6,35 @@
 Phases, each of which raises (and exits non-zero) on failure:
 
 1. device: a CUDA card is required; prints its name and power limit;
-2. build: builds the CUDA kernels from ops/csrc with nvcc;
+2. build: builds the CUDA kernels from ops/csrc with nvcc, one process per
+   source, all started together;
 3. kernels: K1 cost, K2's 8 passes and K3 (LR on and off) against their
    plain PyTorch versions, bitwise, at 32x48x16, 96x160x48 and
-   720x1280x128;
+   720x1280x128; then K4 speckle labels, K5 speckle keep and K7 shift
+   gather (bitwise) and K6 FGS pass (within rtol 2e-3 / atol 2e-2, the
+   JAX package's own WLS bound) at 32x48 and 96x160, and K4/K5 on a
+   720x1280 serpentine, one component that a CCL stopping early splits;
 4. matcher: sgbm_cuda against the NumPy oracle sgbm_ref.sgbm_numpy,
-   bitwise, on a 32x48 synthetic pair with 16 disparities;
-5. main path: StereoPipeline.process_batch on 8 synthetic 1280x720 frames
-   (u8 rectify, 128 disparities, 8 paths, in-matcher LR, speckle off),
-   checked against the rendered ground truth, with launch counts, frames/s
-   and peak memory; then each kernel on the main path's own inputs
-   (8x720x1280x128) against its plain version, bitwise, and both timed.
+   bitwise, on a 32x48 synthetic pair with 16 disparities, speckle off
+   (2, 4 and 8 paths) and on;
+5. main path, slice 1: StereoPipeline.process_batch on 8 synthetic
+   1280x720 frames (u8 rectify, 128 disparities, 8 paths, in-matcher LR,
+   speckle off), checked against the rendered ground truth, with launch
+   counts, frames/s and peak memory; then K1-K3 on the main path's own
+   inputs (8x720x1280x128) against their plain versions, bitwise, and
+   timed;
+6. full main path: the same frames through the reference's configuration
+   (speckle 200/2, right matcher on the stacked 16 frames, WLS filter), at
+   the WLS accuracy bar (valid > 0.95, MAE < 0.7 px outside the left 128
+   columns), with launch counts proving K1-K7 ran, frames/s and peak
+   memory; then K4-K7 on that path's own inputs against their plain
+   versions, and timed; then torch.profiler traces three batches of the
+   full path for the device time per kernel and the device's busy share.
 
-The last two lines are a JSON object with one record per kernel and the
-JSON object {"ok": true, "device": {...}}. The port imports no JAX: the
-reference package's NumPy oracle, calibration and synthetic-scene modules
-are framework-free, and the run checks that JAX stays unloaded.
+The last lines are the card's name and power limit, a JSON object with one
+record per kernel, and the JSON object {"ok": true, "device": {...}}. The
+port imports no JAX and nothing of the JAX package; the run checks that
+JAX stays unloaded.
 """
 
 import json
@@ -42,7 +55,24 @@ KERNELS = {
                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
     "wta_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/wta_lr.cu",
                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
+    "speckle_labels": ("stereo_depth_ruler_tpu_torch/ops/csrc/speckle.cu",
+                       "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1656"),
+    "speckle_keep": ("stereo_depth_ruler_tpu_torch/ops/csrc/speckle.cu",
+                     "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1781"),
+    "fgs_pass": ("stereo_depth_ruler_tpu_torch/ops/csrc/fgs_pass.cu",
+                 "stereo_depth_ruler_tpu/ops/wls_pallas.py:70"),
+    "shift_gather": ("stereo_depth_ruler_tpu_torch/ops/csrc/shift_gather.cu",
+                     "stereo_depth_ruler_tpu/ops/wls_pallas.py:147"),
 }
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
+FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+WLS_RTOL, WLS_ATOL = 2e-3, 2e-2
+DEVICE = "cuda"
+# (H, W, D) of the K1-K3 checks; the serpentine's (H, W); the main path's
+# batch, H, W and D (the JAX package's headline widths)
+KERNEL_SHAPES = ((32, 48, 16), (96, 160, 48), (720, 1280, 128))
+SERPENTINE = (720, 1280)
+MAIN = (8, 720, 1280, 128)
 
 
 def log(*a):
@@ -73,6 +103,14 @@ def max_abs_err(a, b):
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -97,7 +135,8 @@ def phase_build():
     t0 = time.perf_counter()
     lib = kernels.build()
     kernels.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name} from "
+        f"{len(list(kernels.CSRC_DIR.glob('*.cu')))} sources")
     ptxas = lib.with_suffix(".log").read_text()
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", ptxas)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", ptxas)]
@@ -155,25 +194,140 @@ def check_kernels(lt, rt, params, errs):
     return C, S
 
 
+def check_speckle(disp, max_diff, max_size, errs, tag):
+    """K4 and K5 on the (B, H, W) disparity against their plain versions,
+    bitwise; returns (labels, kept)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    labels = sc.speckle_labels(disp, max_diff)
+    torch.cuda.synchronize()
+    kept = sc.speckle_keep(disp, labels, max_size)
+    torch.cuda.synchronize()
+    e_lab = max_abs_err(labels, plain.speckle_labels(disp, max_diff))
+    e_keep = max_abs_err(kept, plain.speckle_keep(disp, labels, max_size))
+    log(f"speckle {tag} {tuple(disp.shape)}: max|err| vs plain: labels "
+        f"{e_lab}, keep {e_keep} (valid in "
+        f"{float((disp >= 0).float().mean()):.3f}, kept "
+        f"{float((kept >= 0).float().mean()):.3f})")
+    errs["speckle_labels"] = max(errs.get("speckle_labels", 0.0), e_lab)
+    errs["speckle_keep"] = max(errs.get("speckle_keep", 0.0), e_keep)
+    if e_lab or e_keep:
+        raise AssertionError(f"speckle kernels differ from their plain "
+                             f"versions ({tag}): labels {e_lab}, keep "
+                             f"{e_keep}")
+    return labels, kept
+
+
+def fgs_err(got, want):
+    """Max |got - want| and whether it stays within the WLS bound."""
+    err = max_abs_err(got, want)
+    ok = bool(((got - want).abs()
+               <= WLS_ATOL + WLS_RTOL * want.abs()).all())
+    return err, ok
+
+
+def check_wls(dl, dr, guide, max_disp, errs, tag):
+    """K7 (bitwise) and K6 (each of the six passes, on the same input as
+    its plain version, within the WLS bound) against their plain versions;
+    returns the kernels' (filtered, confidence)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import wls as plain
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    rhs = wc.shift_gather_conf(dl, dr, max_disp)
+    torch.cuda.synchronize()
+    e_sg = max_abs_err(rhs, plain.shift_gather_conf(dl, dr, max_disp))
+    u, e_fgs, in_bound = rhs, 0.0, True
+    for lam in plain.fgs_lambdas(8000.0, 3):
+        for axis in (-1, -2):
+            got = wc.fgs_pass(u, guide, lam, 1.1, axis)
+            torch.cuda.synchronize()
+            e, ok = fgs_err(got, plain.fgs_pass(u, guide, lam, 1.1, axis))
+            e_fgs, in_bound = max(e_fgs, e), in_bound and ok
+            u = got
+    log(f"wls {tag} {tuple(dl.shape)}: max|err| vs plain: shift_gather "
+        f"{e_sg}, fgs_pass {e_fgs} (within rtol {WLS_RTOL} atol "
+        f"{WLS_ATOL}: {in_bound}; conf {float(rhs[:, 1].mean()):.3f})")
+    errs["shift_gather"] = max(errs.get("shift_gather", 0.0), e_sg)
+    errs["fgs_pass"] = max(errs.get("fgs_pass", 0.0), e_fgs)
+    if e_sg or not in_bound:
+        raise AssertionError(f"WLS kernels off their plain versions ({tag}):"
+                             f" shift_gather {e_sg}, fgs_pass {e_fgs}")
+    return plain.filtered_disparity(u), rhs[:, 1]
+
+
+def _noisy_disp(B, H, W, seed):
+    """Integer disparities 0..4 with a quarter invalid (many small
+    components) and one flat block (a large one)."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 5, (B, H, W)).astype(np.float32)
+    d[rng.uniform(size=d.shape) < 0.25] = -1.0
+    d[:, H // 4:H // 2, W // 4:W // 2] = 7.0
+    return d
+
+
+def _banded_pair(B, H, W, seed):
+    """Left/right disparities of bands 4..40 seen from both views, with
+    noise and invalid pixels; and a random guide image."""
+    rng = np.random.default_rng(seed)
+    base = 4.0 + 2.0 * ((np.arange(H) * 18) // H)[None, :, None]
+    dl = np.float32(base + rng.normal(0, 0.4, (B, H, W)))
+    dl[rng.uniform(size=dl.shape) < 0.2] = -1.0
+    dr = np.float32(base + rng.normal(0, 0.6, (B, H, W)))
+    dr[rng.uniform(size=dr.shape) < 0.1] = -1.0
+    guide = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    return dl, dr, guide
+
+
+def serpentine(H, W, pitch=2):
+    """Boustrophedon snake: one 1-px-wide connected path over the image
+    with H / (2 pitch) double turns, the worst case for sweep CCLs."""
+    disp = -np.ones((H, W), np.float32)
+    for r in range(0, H, 2 * pitch):
+        disp[r, :] = 5.0
+        if r + 2 * pitch < H:
+            disp[r:r + 2 * pitch + 1,
+                 W - 1 if (r // (2 * pitch)) % 2 == 0 else 0] = 5.0
+    return disp
+
+
 def phase_kernels(errs):
     import torch
     from stereo_depth_ruler_tpu_torch import SGBMParams
     from stereo_depth_ruler_tpu_torch.ops.sgbm import sobel_clip
-    for H, W, D in ((32, 48, 16), (96, 160, 48), (720, 1280, 128)):
+    for H, W, D in KERNEL_SHAPES:
         params = SGBMParams(num_disparities=D, block_size=5,
                             speckle_window_size=0)
         left, right = _pair(H, W, D // 3, seed=H)
-        lt = sobel_clip(torch.tensor(left, device="cuda"), 63)
-        rt = sobel_clip(torch.tensor(right, device="cuda"), 63)
+        lt = sobel_clip(torch.tensor(left, device=DEVICE), 63)
+        rt = sobel_clip(torch.tensor(right, device=DEVICE), 63)
         check_kernels(lt, rt, params, errs)
         torch.cuda.empty_cache()
+    for H, W in ((32, 48), (96, 160)):
+        d = torch.tensor(_noisy_disp(2, H, W, seed=H), device=DEVICE)
+        for max_size in (4, 40):
+            check_speckle(d, 1.0, max_size, errs, f"noisy max {max_size}")
+        dl, dr, guide = (torch.tensor(a, device=DEVICE)
+                         for a in _banded_pair(2, H, W, seed=W))
+        check_wls(dl, dr, guide, 48, errs, "banded")
+    snake = serpentine(*SERPENTINE)
+    d = torch.tensor(np.stack([snake, snake[::-1, ::-1].copy()]),
+                     device=DEVICE)
+    labels, kept = check_speckle(d, 1.0, 200, errs, "serpentine")
+    n_comp = [int(torch.unique(labels[b][d[b] >= 0]).numel())
+              for b in range(2)]
+    log(f"serpentine: components per frame {n_comp}, "
+        f"{int((d[0] >= 0).sum())} px each")
+    if n_comp != [1, 1] or not torch.equal(kept, d):
+        raise AssertionError(f"the serpentine is not one kept component: "
+                             f"{n_comp}")
 
 
 def phase_matcher():
     import torch
-    from stereo_depth_ruler_tpu.io.synthetic import (make_scene,
-                                                     render_stereo_pair)
-    from stereo_depth_ruler_tpu.ops.sgbm_ref import sgbm_numpy
+    from stereo_depth_ruler_tpu_torch.io.synthetic import (
+        make_scene, render_stereo_pair)
+    from stereo_depth_ruler_tpu_torch.ops.sgbm_ref import sgbm_numpy
     from stereo_depth_ruler_tpu_torch import SGBMParams, StereoRig
     from stereo_depth_ruler_tpu_torch.ops.sgbm_cuda import sgbm_cuda
     rig = StereoRig.synthetic(width=48, height=32, focal=50.0,
@@ -181,61 +335,69 @@ def phase_matcher():
     scene = make_scene(rig, n_boxes=2, z_range_mm=(200.0, 400.0),
                        background_z_mm=700.0, seed=1)
     left, right, _ = render_stereo_pair(scene, seed=1)
-    for num_paths in (2, 4, 8):
+    for num_paths, speckle in ((2, 0), (4, 0), (8, 0), (8, 20)):
         params = SGBMParams(num_disparities=16, block_size=5, p1=72, p2=288,
-                            speckle_window_size=0, num_paths=num_paths)
-        ref = sgbm_numpy(left, right, params, apply_speckle=False)
-        got = sgbm_cuda(torch.tensor(np.float32(left[None]), device="cuda"),
-                        torch.tensor(np.float32(right[None]), device="cuda"),
+                            speckle_window_size=speckle, speckle_range=2,
+                            num_paths=num_paths)
+        ref = sgbm_numpy(left, right, params)
+        got = sgbm_cuda(torch.tensor(np.float32(left[None]), device=DEVICE),
+                        torch.tensor(np.float32(right[None]), device=DEVICE),
                         params)[0].cpu().numpy()
         torch.cuda.synchronize()
         n_bad = int((got != ref).sum())
-        log(f"matcher vs sgbm_numpy, 32x48x16, {num_paths} paths: "
-            f"{n_bad} differing pixels, valid {(got >= 0).mean():.3f}")
+        log(f"matcher vs sgbm_numpy, 32x48x16, {num_paths} paths, speckle "
+            f"window {speckle}: {n_bad} differing pixels, valid "
+            f"{(got >= 0).mean():.3f}")
         if n_bad:
             raise AssertionError("sgbm_cuda differs from sgbm_numpy")
 
 
-def phase_main_path(card, errs):
-    import torch
-    from stereo_depth_ruler_tpu.io.synthetic import (make_scene,
-                                                     render_stereo_pair)
-    from stereo_depth_ruler_tpu_torch import SGBMParams, StereoRig
-    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
-    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
-    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
-                                                       StereoPipeline)
-    H, W, D, B = 720, 1280, 128, 8
+def render_frames(B, H, W):
+    """bench.py's scene: 5 boxes, seed 0, frame i shifted 2i px."""
+    from stereo_depth_ruler_tpu_torch import StereoRig
+    from stereo_depth_ruler_tpu_torch.io.synthetic import (
+        make_scene, render_stereo_pair)
     t0 = time.perf_counter()
     rig = StereoRig.synthetic(width=W, height=H)
     scene = make_scene(rig, n_boxes=5, z_range_mm=(900.0, 4000.0),
                        background_z_mm=6000.0, seed=0)
     frames = [render_stereo_pair(scene, seed=0, shift=(2.0 * i, 0.0))
               for i in range(B)]
-    lefts = np.stack([f[0] for f in frames])
-    rights = np.stack([f[1] for f in frames])
-    gts = np.stack([f[2] for f in frames])
     log(f"main path: {B} frames {W}x{H} rendered in "
         f"{time.perf_counter() - t0:.1f} s")
+    return (rig, np.stack([f[0] for f in frames]),
+            np.stack([f[1] for f in frames]),
+            np.stack([f[2] for f in frames]))
 
-    cfg = PipelineConfig(
-        sgbm=SGBMParams(num_disparities=D, block_size=5,
-                        speckle_window_size=0),
-        downscale=1, use_wls=False, lr_mode="fast", remap_precision="u8")
-    pipe = StereoPipeline(rig, cfg, rectify=True, device="cuda")
+
+def drive(pipe, lefts, rights, counters):
+    """One counted run: every launch count set to 0 just before, read just
+    after; then the run's peak memory and ms per batch over 5 repeats."""
+    import torch
     pipe.process_batch(lefts, rights)          # warm-up
     torch.cuda.synchronize()
-
     torch.cuda.reset_peak_memory_stats()
-    sc.reset_launch_counts()
+    for c in counters:
+        c.reset_launch_counts()
     out = pipe.process_batch(lefts, rights)
     torch.cuda.synchronize()
-    launches = dict(sc.LAUNCHES)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
-    log(f"main path launches: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    reps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        pipe.process_batch(lefts, rights)
+    end.record()
+    torch.cuda.synchronize()
+    return out, launches, peak, start.elapsed_time(end) / reps
 
+
+def check_output(out, gts, D, tag):
+    """Shapes and finiteness; returns (valid fraction, MAE) against the
+    ground truth outside the left D columns (no partner there)."""
+    B, H, W = gts.shape
     shapes = {k: tuple(v.shape) for k, v in out.items()}
     expect = {"disparity": (B, H, W), "xyz": (B, 3, H, W),
               "confidence": (B, H, W), "left_rectified": (B, H, W),
@@ -246,26 +408,39 @@ def phase_main_path(card, errs):
     if not np.isfinite(disp).all() or not np.isfinite(
             out["frame_stats"][:, :2].cpu().numpy()).all():
         raise AssertionError("non-finite disparity or stats")
-    band = slice(D, None)       # the left D-column band has no partner
-    d, g = disp[..., band], gts[..., band]
+    d, g = disp[..., D:], gts[..., D:]
     ok = d >= 0
     vfrac = float(ok.mean())
     mae = float(np.abs(d[ok] - g[ok]).mean())
-    log(f"main path accuracy (outside the left {D} columns): valid "
-        f"{vfrac:.4f} (bar >= 0.9), MAE {mae:.4f} px (bar <= 0.5)")
+    log(f"{tag} accuracy (outside the left {D} columns): valid "
+        f"{vfrac:.4f}, MAE {mae:.4f} px")
+    return vfrac, mae
+
+
+def phase_main_path(card, errs, frames):
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
+                                                       StereoPipeline)
+    rig, lefts, rights, gts = frames
+    B, H, W = lefts.shape
+    D = MAIN[3]
+    cfg = PipelineConfig(
+        sgbm=SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=0),
+        downscale=1, use_wls=False, lr_mode="fast", remap_precision="u8")
+    pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
+    out, launches, peak, batch_ms = drive(pipe, lefts, rights, [sc])
+    log(f"main path launches: {launches}")
+    if min(launches[k] for k in ("cost_box", "sgm_pass", "wta_lr")) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    vfrac, mae = check_output(out, gts, D, "main path (bar valid >= 0.9, "
+                              "MAE <= 0.5)")
     if not (vfrac >= 0.9 and mae <= 0.5):
         raise AssertionError(f"accuracy bar missed: valid {vfrac}, "
                              f"MAE {mae}")
-
-    reps = 5
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        pipe.process_batch(lefts, rights)
-    end.record()
-    torch.cuda.synchronize()
-    batch_ms = start.elapsed_time(end) / reps
     log(f"main path [{card}]: batch {B} in {batch_ms:.2f} ms -> "
         f"{B * 1000.0 / batch_ms:.2f} frames/s; peak memory "
         f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
@@ -285,38 +460,175 @@ def phase_main_path(card, errs):
     n_dirs = len(params.path_dirs)
     times = {   # ms per launch at batch 8; sgm_pass: mean over directions
         "cost_box": (cuda_ms(lambda: sc.cost_volume(lt, rt, params), 3),
-                     cuda_ms(lambda: plain.cost_volume(lt, rt, params), 1)),
+                     cuda_ms(lambda: plain.cost_volume(lt, rt, params), 1),
+                     None),
         "sgm_pass": (cuda_ms(lambda: sc.aggregate(C, params), 2) / n_dirs,
                      cuda_ms(lambda: plain.aggregate_paths(
-                         C_p, params.P1, params.P2, 8), 1) / n_dirs),
+                         C_p, params.P1, params.P2, 8), 1) / n_dirs, None),
         "wta_lr": (cuda_ms(lambda: sc.wta_lr(S, params), 3),
-                   cuda_ms(lambda: plain.wta_lr(S_p, params), 1)),
+                   cuda_ms(lambda: plain.wta_lr(S_p, params), 1), None),
     }
-    for name, (ms, plain_ms) in times.items():
+    px, el = B * H * W, B * H * W * D
+    # bytes: each input read once, each output written once; operations
+    # per volume element: K1 ~14 (BT terms, min, sliding box sum), K2 ~8
+    # (four-way min, add, subtract), K3 ~4 (packed key, min, uniqueness)
+    bounds = {
+        "cost_box": bound(2 * 4 * px + 2 * el, 14 * el),
+        # one storing pass (C in, S out: 6 B per element) and seven
+        # accumulating ones (C and S in, S out: 10 B), per launch
+        "sgm_pass": bound((6 + 7 * 10) / n_dirs * el, 8 * el),
+        "wta_lr": bound(4 * el + 4 * px, 4 * el),
+    }
+    for name, (ms, plain_ms, _) in times.items():
         log(f"main path [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms per launch")
-    return launches, times
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) per launch")
+    return times, bounds
+
+
+def phase_full_path(card, errs, frames):
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls as wplain
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
+                                                       StereoPipeline)
+    rig, lefts, rights, gts = frames
+    B, H, W = lefts.shape
+    D = MAIN[3]
+    params = SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=200, speckle_range=2)
+    cfg = PipelineConfig(sgbm=params, downscale=1, use_wls=True,
+                         lr_mode="right_matcher", remap_precision="u8")
+    pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
+    out, launches, peak, batch_ms = drive(pipe, lefts, rights, [sc, wc])
+    log(f"full path launches: {launches}")
+    if set(launches) != set(KERNELS) or min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    vfrac, mae = check_output(out, gts, D, "full path (bar valid > 0.95, "
+                              "MAE < 0.7)")
+    if not (vfrac > 0.95 and mae < 0.7):
+        raise AssertionError(f"WLS accuracy bar missed: valid {vfrac}, "
+                             f"MAE {mae}")
+    log(f"full path [{card}]: batch {B} in {batch_ms:.2f} ms -> "
+        f"{B * 1000.0 / batch_ms:.2f} frames/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
+
+    # K4-K7 on the path's own inputs: the 2B matcher outputs before the
+    # speckle filter (K1-K3 on the stacked frames), then the WLS inputs
+    lrect, rrect = out["left_rectified"], out["right_rectified"]
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(torch.cat([lrect, rrect.flip(-1)]), cap)
+    rt = plain.sobel_clip(torch.cat([rrect, lrect.flip(-1)]), cap)
+    dm = sc.wta_lr(sc.aggregate(sc.cost_volume(lt, rt, params), params),
+                   params)
+    del lt, rt
+    torch.cuda.empty_cache()
+    r, ws = params.speckle_range, params.speckle_window_size
+    labels, kept = check_speckle(dm, r, ws, errs, "full path")
+    dl, dr = kept[:B], kept[B:].flip(-1).contiguous()
+    filtered, conf = check_wls(dl, dr, lrect, D, errs, "full path")
+    if not (torch.equal(filtered, out["disparity"])
+            and torch.equal(conf, out["confidence"])):
+        raise AssertionError("the kernels' WLS output differs from the "
+                             "pipeline's")
+    rhs = wc.shift_gather_conf(dl, dr, D)
+    xs = torch.arange(W, dtype=torch.float32, device=dl.device)
+    idx = torch.round(xs - dl).clamp(0, W - 1).to(torch.int64)
+    n = 2 * len(wplain.fgs_lambdas(8000.0, 3))
+    times = {
+        "speckle_labels": (cuda_ms(lambda: sc.speckle_labels(dm, r), 5),
+                           cuda_ms(lambda: plain.speckle_labels(dm, r), 1),
+                           None),
+        "speckle_keep": (cuda_ms(lambda: sc.speckle_keep(dm, labels, ws), 5),
+                         cuda_ms(lambda: plain.speckle_keep(dm, labels, ws),
+                                 1), None),
+        "shift_gather": (cuda_ms(lambda: wc.shift_gather_conf(dl, dr, D), 5),
+                         cuda_ms(lambda: wplain.shift_gather_conf(dl, dr, D),
+                                 2),
+                         cuda_ms(lambda: torch.gather(dr, -1, idx), 5)),
+        "fgs_pass": (cuda_ms(lambda: wc.fgs_filter_cuda(rhs, lrect), 3) / n,
+                     cuda_ms(lambda: wplain.fgs_filter(rhs, lrect), 1) / n,
+                     None),
+    }
+    px2, px = 2 * B * H * W, B * H * W
+    # K6 per pixel and launch (mean of the row and the column pass): two
+    # PCR solves of ceil(log2 N) rounds at ~16 operations (2 divisions,
+    # 14 multiplies and adds) on two right-hand sides' worth of state,
+    # plus ~30 for the weights, coefficients and residual
+    rounds = ((W - 1).bit_length() + (H - 1).bit_length()) / 2
+    bounds = {
+        "speckle_labels": bound(8 * px2, 4 * px2),
+        "speckle_keep": bound(12 * px2, 3 * px2),
+        "shift_gather": bound(16 * px, 10 * px),
+        "fgs_pass": bound(20 * px, (2 * 16 * rounds + 30) * px),
+    }
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        lib = f", torch.gather {lib_ms:.3f} ms" if lib_ms else ""
+        log(f"full path [{card}]: {name}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms{lib}, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}) per launch")
+    return launches, times, bounds, pipe
+
+
+def profile_path(card, pipe, frames, reps=3):
+    """Device time by kernel over ``reps`` batches of the path, and the
+    share of the wall time the device was busy (one stream, so the sum of
+    kernel times)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, lefts, rights, _ = frames
+    pipe.process_batch(lefts, rights)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pipe.process_batch(lefts, rights)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kern)
+    log(f"profile [{card}]: {wall_ms / reps:.2f} ms per batch wall (under "
+        f"the profiler), device busy {busy:.2f} ms "
+        f"({100 * busy * reps / wall_ms:.1f} %)")
+    for name, ms, n in kern[:16]:
+        log(f"profile: {ms:9.3f} ms per batch  x{n:<3d} {name[:90]}")
 
 
 def main():
     if not (ROOT / "stereo_depth_ruler_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repo "
                          "(stereo_depth_ruler_tpu_torch/ not found)")
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
     errs = {}
     phase_kernels(errs)
     phase_matcher()
-    launches, times = phase_main_path(card, errs)
+    frames = render_frames(*MAIN[:3])
+    times1, bounds1 = phase_main_path(card, errs, frames)
+    launches, times2, bounds2, pipe = phase_full_path(card, errs, frames)
+    profile_path(card, pipe, frames)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
+    times, bounds = {**times1, **times2}, {**bounds1, **bounds2}
 
     import torch
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],
-                "plain_ms": times[name][1]}
+                "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1], "library_ms": times[name][2]}
                for name, (src, rep) in KERNELS.items()]
+    log(f"smoke: {time.perf_counter() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from stereo_depth_ruler_tpu.calib.config import StereoRig
+from ..calib.config import StereoRig
 
 __all__ = ["compute_rectify_map", "RemapGrid", "build_remap_grids",
            "remap_bilinear", "rectify_pair"]

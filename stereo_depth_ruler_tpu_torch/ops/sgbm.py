@@ -11,28 +11,26 @@ and to the NumPy oracle. It is what the CPU runs, and what the CUDA kernels
 in ``ops/sgbm_cuda.py`` are held against on the card. Nothing here uses a
 convolution: cuDNN would compute it in TF32 and break the exactness.
 
-``speckle_filter`` is not ported yet: ``sgbm`` raises for a configuration
-that turns it on.
+The speckle filter is the plain version of the CCL labels and keep kernels
+(csrc/speckle.cu): labels by the segmented-min sweeps of the TPU labels
+kernel, iterated to convergence, then a histogram of the labels.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from stereo_depth_ruler_tpu.ops.sgbm_ref import SGBMParams
+from .sgbm_ref import SGBMParams
 
 __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "cost_volume", "directional_pass", "aggregate_paths", "wta",
-           "lr_check", "wta_lr", "sgbm", "SPECKLE_QUEUED"]
+           "lr_check", "wta_lr", "speckle_labels", "speckle_keep",
+           "speckle_filter", "sgbm", "compute_disparity_pair"]
 
 _BIG = 1e9
-
-SPECKLE_QUEUED = (
-    "the speckle filter is not ported yet: its kernels (the CCL labels "
-    "kernel, the key-only sort, the large-roots and the propagate-keep "
-    "kernels) are queued; set speckle_window_size=0")
+_BIGI = 2 ** 28   # "infinity" of the integer label sweeps
 
 
 def _pad_edge(x: torch.Tensor, dim: int, r: int) -> torch.Tensor:
@@ -259,15 +257,130 @@ def wta_lr(S: torch.Tensor, params: SGBMParams,
     return torch.where(valid, disp, torch.full_like(disp, -1.0))
 
 
+def _shift(x: torch.Tensor, k: int, dim: int, fill) -> torch.Tensor:
+    """x[i - k] along ``dim`` for k > 0, x[i + |k|] for k < 0; ``fill``
+    where that index falls outside."""
+    n = x.shape[dim]
+    if abs(k) >= n:
+        return torch.full_like(x, fill)
+    pad = torch.full_like(x.narrow(dim, 0, abs(k)), fill)
+    if k > 0:
+        return torch.cat([pad, x.narrow(dim, 0, n - k)], dim=dim)
+    return torch.cat([x.narrow(dim, -k, n + k), pad], dim=dim)
+
+
+def _segmented_min_sweep(lab: torch.Tensor, conn: torch.Tensor, dim: int,
+                         reverse: bool) -> torch.Tensor:
+    """Min of ``lab`` over each element's run up to it along ``dim``
+    (from below, or from above with ``reverse``); conn[i] links element i
+    to element i-1. Log-doubling, as the TPU labels kernel's sweep."""
+    n = lab.shape[dim]
+    c = _shift(conn, -1, dim, False) if reverse else conn
+    val = lab
+    k = 1
+    while k < n:
+        step = -k if reverse else k
+        v_n = _shift(val, step, dim, _BIGI)
+        c_n = _shift(c, step, dim, False)
+        val = torch.where(c, torch.minimum(val, v_n), val)
+        c = c & c_n
+        k *= 2
+    return val
+
+
+def speckle_labels(disp: torch.Tensor, max_diff: float, max_iters: int = 0,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """4-connected component labels of (..., H, W) disparity maps, int32:
+    two pixels link when both are valid and their disparities differ by at
+    most ``max_diff``; a component's label is its smallest flat index
+    y*W + x, an invalid pixel's is H*W. ``valid`` defaults to disp >= 0.
+
+    Rounds of row sweeps (both directions) then column sweeps run until no
+    label changes, or at most ``max_iters`` rounds when that is > 0 (capped
+    labels can only over-split a component). The plain version of the
+    labels kernel, whose union-find has no capped mode."""
+    H, W = disp.shape[-2], disp.shape[-1]
+    n = H * W
+    if valid is None:
+        valid = disp >= 0
+    flat = torch.arange(n, dtype=torch.int32,
+                        device=disp.device).reshape(H, W)
+    sent = torch.full_like(flat, n)
+    lab = torch.where(valid, flat, sent)
+    ok_h = (valid[..., :, 1:] & valid[..., :, :-1]
+            & ((disp[..., :, 1:] - disp[..., :, :-1]).abs() <= max_diff))
+    ok_v = (valid[..., 1:, :] & valid[..., :-1, :]
+            & ((disp[..., 1:, :] - disp[..., :-1, :]).abs() <= max_diff))
+    c_h = torch.cat([torch.zeros_like(ok_h[..., :1]), ok_h], dim=-1)
+    c_v = torch.cat([torch.zeros_like(ok_v[..., :1, :]), ok_v], dim=-2)
+    rounds = 0
+    while True:
+        new = _segmented_min_sweep(lab, c_h, -1, False)
+        new = _segmented_min_sweep(new, c_h, -1, True)
+        new = _segmented_min_sweep(new, c_v, -2, False)
+        new = _segmented_min_sweep(new, c_v, -2, True)
+        rounds += 1
+        changed = not torch.equal(new, lab)
+        lab = new
+        if not changed or 0 < max_iters <= rounds:
+            break
+    return torch.where(valid, lab, sent)
+
+
+def _keep_mask(labels: torch.Tensor, max_size: int) -> torch.Tensor:
+    """Valid pixels (label < H*W) of components larger than max_size: an
+    int32 histogram of the labels (scatter_add_ of ones into H*W+1 bins
+    per frame), then a gather."""
+    H, W = labels.shape[-2], labels.shape[-1]
+    n = H * W
+    lab = labels.reshape(-1, n).to(torch.int64)
+    sizes = torch.zeros((lab.shape[0], n + 1), dtype=torch.int32,
+                        device=labels.device)
+    sizes.scatter_add_(1, lab, torch.ones_like(lab, dtype=torch.int32))
+    keep = (lab < n) & (torch.gather(sizes, 1, lab) > max_size)
+    return keep.reshape(labels.shape)
+
+
+def speckle_keep(disp: torch.Tensor, labels: torch.Tensor,
+                 max_size: int) -> torch.Tensor:
+    """``disp`` where the pixel is valid and its component has more than
+    ``max_size`` pixels, else -1.0: the plain version of the keep kernel."""
+    return torch.where(_keep_mask(labels, max_size), disp,
+                       torch.full_like(disp, -1.0))
+
+
+def speckle_filter(disp: torch.Tensor, valid: torch.Tensor, max_size: int,
+                   max_diff: float, max_iters: int = 0) -> torch.Tensor:
+    """Connected-component speckle removal (cv::filterSpeckles semantics):
+    ``valid`` without the components of at most ``max_size`` pixels."""
+    labels = speckle_labels(disp, max_diff, max_iters, valid=valid)
+    return _keep_mask(labels, max_size)
+
+
 def sgbm(left: torch.Tensor, right: torch.Tensor,
          params: SGBMParams = SGBMParams(),
          apply_lr: bool = True, apply_speckle: bool = True) -> torch.Tensor:
-    """Full SGBM on (..., H, W) images -> float32 disparity, invalid -1.0.
-
-    Raises NotImplementedError when the speckle filter would run."""
-    if apply_speckle and params.speckle_window_size > 0:
-        raise NotImplementedError(SPECKLE_QUEUED)
+    """Full SGBM on (..., H, W) images -> float32 disparity, invalid -1.0:
+    WTA, then the LR check, then the speckle filter."""
     cap = params.pre_filter_cap
     C = cost_volume(sobel_clip(left, cap), sobel_clip(right, cap), params)
     S = aggregate_paths(C, params.P1, params.P2, params.num_paths)
-    return wta_lr(S, params, apply_lr)
+    disp, valid = wta(S, params)
+    if apply_lr:
+        valid = lr_check(S, disp, valid, params)
+    if apply_speckle and params.speckle_window_size > 0:
+        valid = speckle_filter(disp, valid, params.speckle_window_size,
+                               params.speckle_range)
+    return torch.where(valid, disp, torch.full_like(disp, -1.0))
+
+
+def compute_disparity_pair(left: torch.Tensor, right: torch.Tensor,
+                           params: SGBMParams = SGBMParams()
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left and right disparity maps of (..., H, W) pairs: the right
+    matcher is the left matcher on mirrored, swapped inputs
+    (cv::ximgproc::createRightMatcher), so right-view disparities come
+    out positive."""
+    disp_l = sgbm(left, right, params)
+    disp_r = sgbm(right.flip(-1), left.flip(-1), params).flip(-1)
+    return disp_l, disp_r

@@ -1,4 +1,4 @@
-"""The SGBM matcher on three hand-written CUDA kernels (``ops/csrc``).
+"""The SGBM matcher on five hand-written CUDA kernels (``ops/csrc``).
 
 Counterpart of ``stereo_depth_ruler_tpu/ops/sgbm_pallas.py:sgbm_pallas``:
 Sobel in plain torch, then
@@ -6,7 +6,10 @@ Sobel in plain torch, then
 - K1 ``cost_volume``  (csrc/cost_box.cu): BT cost + box sum -> int16 C;
 - K2 ``sgm_pass``     (csrc/sgm_pass.cu): one launch per path direction,
   adding L into an int32 S (the 8-path sum reaches ~70000, past int16);
-- K3 ``wta_lr``       (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR.
+- K3 ``wta_lr``       (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR;
+- K4 ``speckle_labels`` (csrc/speckle.cu): union-find CCL -> int32 labels;
+- K5 ``speckle_keep``   (csrc/speckle.cu): label histogram -> the
+  disparity without the components of at most speckle_window_size pixels.
 
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
@@ -18,15 +21,17 @@ from __future__ import annotations
 
 import torch
 
-from stereo_depth_ruler_tpu.ops.sgbm_ref import SGBMParams
+from .sgbm_ref import SGBMParams
 
 from ..utils import kernels
 from . import sgbm as plain
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume", "sgm_pass",
-           "aggregate", "wta_lr", "sgbm_cuda"]
+           "aggregate", "wta_lr", "speckle_labels", "speckle_keep",
+           "sgbm_cuda"]
 
-LAUNCHES = {"cost_box": 0, "sgm_pass": 0, "wta_lr": 0}
+LAUNCHES = {"cost_box": 0, "sgm_pass": 0, "wta_lr": 0, "speckle_labels": 0,
+            "speckle_keep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -135,15 +140,57 @@ def wta_lr(S: torch.Tensor, params: SGBMParams,
     return out
 
 
+def speckle_labels(disp: torch.Tensor, max_diff: float,
+                   max_iters: int = 0) -> torch.Tensor:
+    """(B, H, W) float32 disparity (invalid < 0) -> (B, H, W) int32
+    component labels: the smallest flat index of each 4-connected
+    component of valid pixels whose disparities differ by at most
+    ``max_diff``, H*W for an invalid pixel. The kernel's union-find always
+    runs to the end, so on CUDA only ``max_iters == 0`` is accepted."""
+    if not _on_cuda(disp):
+        return plain.speckle_labels(disp, max_diff, max_iters)
+    if max_iters != 0:
+        raise ValueError("the labels kernel has no capped mode: "
+                         f"max_iters must be 0, got {max_iters}")
+    _require(disp, torch.float32, 3, "disp")
+    B, H, W = disp.shape
+    out = torch.empty((B, H, W), dtype=torch.int32, device=disp.device)
+    rc = kernels.load().sdr_speckle_labels(disp.data_ptr(), out.data_ptr(),
+                                           B, H, W, float(max_diff),
+                                           _stream())
+    kernels.check(rc, "speckle_labels")
+    LAUNCHES["speckle_labels"] += 1
+    return out
+
+
+def speckle_keep(disp: torch.Tensor, labels: torch.Tensor,
+                 max_size: int) -> torch.Tensor:
+    """(B, H, W) disparity and its labels -> the disparity where the
+    pixel's component has more than ``max_size`` pixels, else -1.0."""
+    if not _on_cuda(disp, labels):
+        return plain.speckle_keep(disp, labels, max_size)
+    _require(disp, torch.float32, 3, "disp")
+    _require(labels, torch.int32, 3, "labels")
+    if disp.shape != labels.shape:
+        raise ValueError(f"shape mismatch {tuple(disp.shape)} "
+                         f"{tuple(labels.shape)}")
+    B, H, W = disp.shape
+    sizes = torch.empty((B, H * W + 1), dtype=torch.int32, device=disp.device)
+    out = torch.empty_like(disp)
+    rc = kernels.load().sdr_speckle_keep(disp.data_ptr(), labels.data_ptr(),
+                                         sizes.data_ptr(), out.data_ptr(),
+                                         B, H, W, int(max_size), _stream())
+    kernels.check(rc, "speckle_keep")
+    LAUNCHES["speckle_keep"] += 1
+    return out
+
+
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
               params: SGBMParams = SGBMParams(),
               apply_lr: bool = True) -> torch.Tensor:
-    """(B, H, W) float32 pair -> (B, H, W) float32 disparity, invalid -1.0.
-
-    The speckle filter is not ported yet, so a ``params`` with
-    ``speckle_window_size > 0`` raises NotImplementedError."""
-    if params.speckle_window_size > 0:
-        raise NotImplementedError(plain.SPECKLE_QUEUED)
+    """(B, H, W) float32 pair -> (B, H, W) float32 disparity, invalid -1.0:
+    WTA and the LR check, then the speckle filter when
+    ``speckle_window_size > 0``."""
     _check_params(params)
     if left.dim() != 3 or left.shape != right.shape:
         raise ValueError(f"need two (B, H, W) images of one shape, got "
@@ -153,4 +200,9 @@ def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
     rt = plain.sobel_clip(right, cap).contiguous()
     C = cost_volume(lt, rt, params)
     S = aggregate(C, params)
-    return wta_lr(S, params, apply_lr)
+    disp = wta_lr(S, params, apply_lr)
+    del C, S
+    if params.speckle_window_size > 0:
+        labels = speckle_labels(disp, params.speckle_range)
+        disp = speckle_keep(disp, labels, params.speckle_window_size)
+    return disp

@@ -1,14 +1,19 @@
-"""End-to-end stereo depth pipeline: rectify -> SGBM -> reproject -> stats.
+"""End-to-end stereo depth pipeline: rectify -> SGBM -> WLS -> reproject
+-> stats.
 
 Port of ``stereo_depth_ruler_tpu/pipeline.py``. On a CUDA device the
-matcher runs the three CUDA kernels of ``ops/sgbm_cuda.py``; on the CPU it
-runs their plain versions. A device named ``"cuda"`` on a machine without
-CUDA raises: the pipeline never moves to the CPU by itself.
+matcher runs the five CUDA kernels of ``ops/sgbm_cuda.py`` (cost, SGM
+pass, WTA/LR, speckle labels and keep) and the WLS filter the two of
+``ops/wls_cuda.py`` (shift gather, FGS pass); on the CPU they run their
+plain versions. A device named ``"cuda"`` on a machine without CUDA raises:
+the pipeline never moves to the CPU by itself.
 
-Not ported yet, and rejected with NotImplementedError when configured: the
-speckle filter, the right matcher + WLS filter (``use_wls=True`` with
-``lr_mode="right_matcher"``) and the shared-cost pair (``pair_mode=
-"shared"``). ``lr_mode="fast"`` is the in-matcher LR check.
+With ``use_wls=True`` and ``lr_mode="right_matcher"`` (the defaults, the
+reference's flow) the left and the right matcher run as one matcher call
+on the stacked 2N frames, and the WLS filter smooths the left disparity
+with the LR confidence. ``lr_mode="fast"`` is the in-matcher LR check.
+The shared-cost pair (``pair_mode="shared"``) is not ported yet and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,14 +25,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from stereo_depth_ruler_tpu.calib.config import StereoRig
-from stereo_depth_ruler_tpu.ops.sgbm_ref import SGBMParams
+from .calib.config import StereoRig
+from .ops.sgbm_ref import SGBMParams
 
 from .metrics import batch_frame_stats
 from .ops.remap import RemapGrid, build_remap_grids, remap_bilinear
 from .ops.reproject import reproject_to_3d
-from .ops.sgbm import SPECKLE_QUEUED
 from .ops.sgbm_cuda import sgbm_cuda
+from .ops.wls_cuda import wls_disparity_filter_cuda
 
 __all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x"]
 
@@ -70,16 +75,9 @@ class PipelineConfig:
 def _check_supported(cfg: PipelineConfig) -> None:
     if cfg.lr_mode not in ("right_matcher", "fast", "none"):
         raise ValueError(f"unknown lr_mode {cfg.lr_mode!r}")
-    if cfg.use_wls and cfg.lr_mode == "right_matcher":
-        raise NotImplementedError(
-            "the right matcher + WLS filter is not ported yet (its kernels, "
-            "the FGS pass and the shift gather, are queued); use "
-            "use_wls=False or lr_mode='fast'")
     if cfg.pair_mode != "stacked":
         raise NotImplementedError(
             f"pair_mode={cfg.pair_mode!r} is not ported yet; use 'stacked'")
-    if cfg.sgbm.speckle_window_size > 0:
-        raise NotImplementedError(SPECKLE_QUEUED)
 
 
 def _resolve_device(device) -> torch.device:
@@ -145,9 +143,21 @@ class StereoPipeline:
         for _ in range(self._n_down):
             left = downscale2x(left)
             right = downscale2x(right)
-        disp = sgbm_cuda(left.contiguous(), right.contiguous(), cfg.sgbm,
-                         apply_lr=cfg.lr_mode != "none")
-        conf = (disp >= 0).to(torch.float32)
+        if cfg.use_wls and cfg.lr_mode == "right_matcher":
+            # the left matcher and the right one (the left matcher on the
+            # mirrored, swapped pair) as one call on 2N frames
+            n = left.shape[0]
+            dd = sgbm_cuda(torch.cat([left, right.flip(-1)]).contiguous(),
+                           torch.cat([right, left.flip(-1)]).contiguous(),
+                           cfg.sgbm)
+            disp_r = dd[n:].flip(-1).contiguous()
+            D = cfg.sgbm.num_disparities + cfg.sgbm.min_disparity
+            disp, conf = wls_disparity_filter_cuda(dd[:n], disp_r, left,
+                                                   max_disp=D)
+        else:
+            disp = sgbm_cuda(left.contiguous(), right.contiguous(), cfg.sgbm,
+                             apply_lr=cfg.lr_mode != "none")
+            conf = (disp >= 0).to(torch.float32)
         xyz = reproject_to_3d(disp, self.rig.Q, scale=1.0 / cfg.downscale,
                               quirk_compat=cfg.quirk_compat,
                               handle_missing=cfg.handle_missing,

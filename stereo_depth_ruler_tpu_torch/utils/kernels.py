@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``ops/csrc/*.cu`` expose a plain C interface (no PyTorch
-headers), so one ``nvcc`` call builds them in seconds. The shared library is
-built on first use into ``stereo_depth_ruler_tpu_torch/_build/``, named by a
+headers), so ``nvcc`` builds each in seconds; the sources compile in
+parallel, one ``nvcc`` each, and one more call links them. The shared
+library is built on first use into ``stereo_depth_ruler_tpu_torch/_build/``, named by a
 hash of the sources and flags, so a checkout with nothing built builds
 everything the first time a kernel is launched. There is no fallback: a
 missing ``nvcc`` or a failed build raises.
@@ -27,12 +28,14 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
-# No --use_fast_math: division and rintf must stay IEEE.
+# Compile flags. No --use_fast_math: division, expf and rintf stay IEEE.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # lt, rt, out, B, H, W, D, md, block, stream
     "sdr_cost_box": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -40,6 +43,14 @@ _SIGNATURES = {
     "sdr_sgm_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # S, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr, stream
     "sdr_wta_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # disp, labels, B, H, W, max_diff, stream
+    "sdr_speckle_labels": [_P, _P, _I, _I, _I, _F, _P],
+    # disp, labels, sizes, out, B, H, W, max_size, stream
+    "sdr_speckle_keep": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dl, dr, rhs, B, H, W, max_s, lrc_thresh, fill, stream
+    "sdr_shift_gather_conf": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # guide, u, out, B, H, W, rows, lam, sigma, stream
+    "sdr_fgs_pass": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _lib = None
@@ -62,7 +73,7 @@ def build() -> Path:
     """Build the kernel library if it is not built yet; return its path.
     The compiler's register and shared-memory report goes to a ``.log``
     file beside the library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -70,16 +81,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        logs = [p.communicate()[0] for p in procs]
+        tmp = Path(work) / "lib.so"
+        link = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        for cmd, p, log in zip(jobs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, lib)
     return lib
 
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain versions on the card, bitwise.
+"""The CUDA kernels against their plain versions on the card: bitwise, and
+the FGS pass within rtol 2e-3 / atol 2e-2 (the JAX package's WLS bound).
 
 Marked ``cuda``: they need a CUDA card and nvcc, and skip without them.
 The file needs nothing from tests/conftest.py (which imports JAX), so on a
@@ -11,12 +12,14 @@ import pytest
 
 import torch
 
-from stereo_depth_ruler_tpu.io.synthetic import make_scene, render_stereo_pair
-from stereo_depth_ruler_tpu.ops.sgbm_ref import sgbm_numpy
+from stereo_depth_ruler_tpu_torch.io.synthetic import make_scene, render_stereo_pair
+from stereo_depth_ruler_tpu_torch.ops.sgbm_ref import sgbm_numpy
 from stereo_depth_ruler_tpu_torch import StereoRig
 from stereo_depth_ruler_tpu_torch import SGBMParams
 from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
 from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+from stereo_depth_ruler_tpu_torch.ops import wls as wplain
+from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
 
 pytestmark = pytest.mark.cuda
 
@@ -66,16 +69,90 @@ def test_kernels_match_plain(cuda, H, W, kw):
         assert torch.equal(got, plain.wta_lr(S_p, params, apply_lr))
 
 
-def test_matcher_matches_numpy_oracle(cuda):
+@pytest.mark.parametrize("speckle", [0, 20])
+def test_matcher_matches_numpy_oracle(cuda, speckle):
     rig = StereoRig.synthetic(width=48, height=32, focal=50.0,
                               baseline_mm=30.0)
     scene = make_scene(rig, n_boxes=2, z_range_mm=(200.0, 400.0),
                        background_z_mm=700.0, seed=1)
     left, right, _ = render_stereo_pair(scene, seed=1)
     params = SGBMParams(num_disparities=16, block_size=5, p1=72, p2=288,
-                        speckle_window_size=0)
+                        speckle_window_size=speckle, speckle_range=2)
     got = sc.sgbm_cuda(torch.tensor(np.float32(left[None]), device=cuda),
                        torch.tensor(np.float32(right[None]), device=cuda),
                        params)
     np.testing.assert_array_equal(got[0].cpu().numpy(),
                                   sgbm_numpy(left, right, params))
+
+
+def serpentine(H, W, pitch=2):
+    """One 1-px-wide snake over the image: H / (2 pitch) double turns."""
+    disp = -np.ones((H, W), np.float32)
+    for r in range(0, H, 2 * pitch):
+        disp[r, :] = 5.0
+        if r + 2 * pitch < H:
+            disp[r:r + 2 * pitch + 1,
+                 W - 1 if (r // (2 * pitch)) % 2 == 0 else 0] = 5.0
+    return disp
+
+
+def noisy(H, W, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 5, (2, H, W)).astype(np.float32)
+    d[rng.uniform(size=d.shape) < 0.25] = -1.0
+    d[:, H // 4:H // 2, W // 4:W // 2] = 7.5
+    return d
+
+
+@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid"])
+def test_speckle_kernels_match_plain(cuda, case):
+    if case == "noisy":
+        d = noisy(96, 160, seed=3)
+    elif case == "serpentine":
+        s = serpentine(256, 384)
+        d = np.stack([s, s[::-1, ::-1]])
+    else:
+        d = np.full((2, 40, 64), -1.0, np.float32)
+    disp = torch.tensor(np.ascontiguousarray(d), device=cuda)
+    for max_size in (4, 40):
+        labels = sc.speckle_labels(disp, 1.0)
+        torch.cuda.synchronize()
+        assert torch.equal(labels, plain.speckle_labels(disp, 1.0))
+        kept = sc.speckle_keep(disp, labels, max_size)
+        torch.cuda.synchronize()
+        assert torch.equal(kept, plain.speckle_keep(disp, labels, max_size))
+    if case == "serpentine":
+        assert torch.unique(labels[0][disp[0] >= 0]).numel() == 1
+    with pytest.raises(ValueError, match="max_iters"):
+        sc.speckle_labels(disp, 1.0, max_iters=3)
+
+
+def banded(H, W, seed):
+    rng = np.random.default_rng(seed)
+    base = 4.0 + 2.0 * ((np.arange(H) * 12) // H)[None, :, None]
+    dl = np.float32(base + rng.normal(0, 0.4, (2, H, W)))
+    dl[rng.uniform(size=dl.shape) < 0.2] = -1.0
+    dl[0, 3, 10], dl[0, 3, 11] = 2.5, 3.5        # exact halves
+    dr = np.float32(base + rng.normal(0, 0.6, (2, H, W)))
+    dr[rng.uniform(size=dr.shape) < 0.1] = -1.0
+    guide = rng.uniform(0, 255, (2, H, W)).astype(np.float32)
+    return dl, dr, guide
+
+
+@pytest.mark.parametrize("H,W", [(40, 64), (96, 300)])
+def test_wls_kernels_match_plain(cuda, H, W):
+    dl, dr, guide = (torch.tensor(a, device=cuda) for a in banded(H, W, H))
+    rhs = wc.shift_gather_conf(dl, dr, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(rhs, wplain.shift_gather_conf(dl, dr, 32))
+    for axis in (-1, -2):
+        got = wc.fgs_pass(rhs, guide, 2000.0, 1.1, axis)
+        torch.cuda.synchronize()
+        want = wplain.fgs_pass(rhs, guide, 2000.0, 1.1, axis)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-2)
+    f, conf = wc.wls_disparity_filter_cuda(dl, dr, guide, max_disp=32)
+    f_p, conf_p = wplain.wls_disparity_filter(dl, dr, guide, max_disp=32)
+    assert torch.equal(conf, conf_p)
+    assert torch.equal(f < 0, f_p < 0)
+    m = f_p >= 0
+    torch.testing.assert_close(f[m], f_p[m], rtol=2e-3, atol=2e-2)

@@ -3,6 +3,8 @@ path of ops.sgbm_cuda) against the JAX package's jnp matcher, its Pallas
 kernels in interpret mode and the NumPy oracle: bitwise, since every cost
 and path value is an exact small integer."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -13,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from stereo_depth_ruler_tpu.ops import sgbm as js
 from stereo_depth_ruler_tpu.ops import sgbm_pallas as sp
+from stereo_depth_ruler_tpu.ops.sgbm_ref import SGBMParams as JaxParams
 from stereo_depth_ruler_tpu.ops.sgbm_ref import sgbm_numpy
 from stereo_depth_ruler_tpu_torch import SGBMParams
 from stereo_depth_ruler_tpu_torch.ops import sgbm as ts
@@ -20,6 +23,7 @@ from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as tc
 
 PARAMS = SGBMParams(num_disparities=16, block_size=5, p1=72, p2=288,
                     speckle_window_size=0)
+JPARAMS = JaxParams(**dataclasses.asdict(PARAMS))
 
 
 def T(a):
@@ -92,15 +96,15 @@ def test_sgm_pass_wrapper_sums_to_aggregate(cost, S8):
 
 
 def test_wta(S8):
-    d_j, v_j = js.wta(jnp.asarray(S8), PARAMS)
+    d_j, v_j = js.wta(jnp.asarray(S8), JPARAMS)
     d_t, v_t = ts.wta(T(S8), PARAMS)
     eq(d_t, d_j)
     eq(v_t, v_j)
 
 
 def test_lr_check(S8):
-    d_j, v_j = js.wta(jnp.asarray(S8), PARAMS)
-    want = js.lr_check(jnp.asarray(S8), d_j, v_j, PARAMS)
+    d_j, v_j = js.wta(jnp.asarray(S8), JPARAMS)
+    want = js.lr_check(jnp.asarray(S8), d_j, v_j, JPARAMS)
     d_t, v_t = ts.wta(T(S8), PARAMS)
     eq(ts.lr_check(T(S8), d_t, v_t, PARAMS), want)
 
@@ -108,21 +112,22 @@ def test_lr_check(S8):
 @pytest.mark.parametrize("apply_lr", [True, False])
 def test_sgbm_vs_jnp(imgs, apply_lr):
     left, right = imgs
-    want = js.sgbm(jnp.asarray(left), jnp.asarray(right), PARAMS,
+    want = js.sgbm(jnp.asarray(left), jnp.asarray(right), JPARAMS,
                    apply_lr=apply_lr)
     eq(ts.sgbm(T(left), T(right), PARAMS, apply_lr=apply_lr), want)
 
 
 def test_sgbm_vs_numpy_oracle(imgs, tiny_pair):
     left, right, _ = tiny_pair
-    want = sgbm_numpy(left, right, PARAMS)
+    want = sgbm_numpy(left, right, JPARAMS)
     eq(ts.sgbm(T(imgs[0]), T(imgs[1]), PARAMS), want)
 
 
 def test_sgbm_vs_pallas_interpret(imgs):
     left, right = imgs
     with pltpu.force_tpu_interpret_mode():
-        want = sp.sgbm_pallas(jnp.asarray(left), jnp.asarray(right), PARAMS)
+        want = sp.sgbm_pallas(jnp.asarray(left), jnp.asarray(right),
+                              JPARAMS)
     eq(ts.sgbm(T(left), T(right), PARAMS), np.asarray(want))
 
 
@@ -135,17 +140,21 @@ def test_sgbm_cuda_cpu_batch_vs_jnp():
     left = rng.uniform(0, 255, (2, 20, 48)).astype(np.float32)
     right = (np.roll(left, -9, axis=2)
              + rng.normal(0, 2, left.shape)).astype(np.float32)
-    want = jax.jit(jax.vmap(lambda a, b: js.sgbm(a, b, params)))(
+    jparams = JaxParams(**dataclasses.asdict(params))
+    want = jax.jit(jax.vmap(lambda a, b: js.sgbm(a, b, jparams)))(
         jnp.asarray(left), jnp.asarray(right))
     eq(tc.sgbm_cuda(T(left), T(right), params), want)
 
 
 def test_speckle_and_negative_min_disparity_raise(imgs):
+    """The speckle filter runs (default window 200, range 2), in the plain
+    matcher and in the kernel matcher's CPU path alike; a negative
+    min_disparity is refused by the kernel matcher."""
     left, right = T(imgs[0]), T(imgs[1])
-    with pytest.raises(NotImplementedError, match="speckle"):
-        ts.sgbm(left, right, SGBMParams(num_disparities=16))
-    with pytest.raises(NotImplementedError, match="speckle"):
-        tc.sgbm_cuda(left[None], right[None], SGBMParams(num_disparities=16))
+    params = SGBMParams(num_disparities=16)
+    got = ts.sgbm(left, right, params)
+    eq(tc.sgbm_cuda(left[None], right[None], params)[0], got)
+    eq(got, sgbm_numpy(imgs[0], imgs[1], JaxParams(num_disparities=16)))
     with pytest.raises(ValueError, match="min_disparity"):
         tc.sgbm_cuda(left[None], right[None],
                      SGBMParams(num_disparities=16, min_disparity=-2,
