@@ -10,10 +10,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    source, all started together;
 3. kernels: K1 cost, K2's 8 passes and K3 (LR on and off) against their
    plain PyTorch versions, bitwise, at 32x48x16, 96x160x48 and
-   720x1280x128; then K4 speckle labels, K5 speckle keep and K7 shift
-   gather (bitwise) and K6 FGS pass (within rtol 2e-3 / atol 2e-2, the
-   JAX package's own WLS bound) at 32x48 and 96x160, and K4/K5 on a
-   720x1280 serpentine, one component that a CCL stopping early splits;
+   720x1280x128; then K4 speckle labels, K5 speckle keep, K7 shift
+   gather and K6 FGS pass (all bitwise) at 32x48 and 96x160, and K4/K5
+   on a 720x1280 serpentine, one component that a CCL stopping early
+   splits;
 4. matcher: sgbm_cuda against the NumPy oracle sgbm_ref.sgbm_numpy,
    bitwise, on a 32x48 synthetic pair with 16 disparities, speckle off
    (2, 4 and 8 paths) and on;
@@ -27,8 +27,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    (speckle 200/2, right matcher on the stacked 16 frames, WLS filter), at
    the WLS accuracy bar (valid > 0.95, MAE < 0.7 px outside the left 128
    columns), with launch counts proving K1-K7 ran, frames/s and peak
-   memory; then K4-K7 on that path's own inputs against their plain
-   versions, and timed; then torch.profiler traces three batches of the
+   memory; then K1-K7 on that path's own inputs (K1-K3 on the 16 stacked
+   frames, 16x720x1280x128) against their plain versions, bitwise, and
+   K4-K7 timed; then torch.profiler traces three batches of the
    full path for the device time per kernel and the device's busy share.
 
 The last lines are the card's name and power limit, a JSON object with one
@@ -66,7 +67,6 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-WLS_RTOL, WLS_ATOL = 2e-3, 2e-2
 DEVICE = "cuda"
 # (H, W, D) of the K1-K3 checks; the serpentine's (H, W); the main path's
 # batch, H, W and D (the JAX package's headline widths)
@@ -219,38 +219,29 @@ def check_speckle(disp, max_diff, max_size, errs, tag):
     return labels, kept
 
 
-def fgs_err(got, want):
-    """Max |got - want| and whether it stays within the WLS bound."""
-    err = max_abs_err(got, want)
-    ok = bool(((got - want).abs()
-               <= WLS_ATOL + WLS_RTOL * want.abs()).all())
-    return err, ok
-
-
 def check_wls(dl, dr, guide, max_disp, errs, tag):
-    """K7 (bitwise) and K6 (each of the six passes, on the same input as
-    its plain version, within the WLS bound) against their plain versions;
-    returns the kernels' (filtered, confidence)."""
+    """K7 and K6 (each of the six passes, on the same input as its plain
+    version) against their plain versions, bitwise; returns the kernels'
+    (filtered, confidence)."""
     import torch
     from stereo_depth_ruler_tpu_torch.ops import wls as plain
     from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
     rhs = wc.shift_gather_conf(dl, dr, max_disp)
     torch.cuda.synchronize()
     e_sg = max_abs_err(rhs, plain.shift_gather_conf(dl, dr, max_disp))
-    u, e_fgs, in_bound = rhs, 0.0, True
+    u, e_fgs = rhs, 0.0
     for lam in plain.fgs_lambdas(8000.0, 3):
         for axis in (-1, -2):
             got = wc.fgs_pass(u, guide, lam, 1.1, axis)
             torch.cuda.synchronize()
-            e, ok = fgs_err(got, plain.fgs_pass(u, guide, lam, 1.1, axis))
-            e_fgs, in_bound = max(e_fgs, e), in_bound and ok
+            e_fgs = max(e_fgs, max_abs_err(
+                got, plain.fgs_pass(u, guide, lam, 1.1, axis)))
             u = got
     log(f"wls {tag} {tuple(dl.shape)}: max|err| vs plain: shift_gather "
-        f"{e_sg}, fgs_pass {e_fgs} (within rtol {WLS_RTOL} atol "
-        f"{WLS_ATOL}: {in_bound}; conf {float(rhs[:, 1].mean()):.3f})")
+        f"{e_sg}, fgs_pass {e_fgs} (conf {float(rhs[:, 1].mean()):.3f})")
     errs["shift_gather"] = max(errs.get("shift_gather", 0.0), e_sg)
     errs["fgs_pass"] = max(errs.get("fgs_pass", 0.0), e_fgs)
-    if e_sg or not in_bound:
+    if e_sg or e_fgs:
         raise AssertionError(f"WLS kernels off their plain versions ({tag}):"
                              f" shift_gather {e_sg}, fgs_pass {e_fgs}")
     return plain.filtered_disparity(u), rhs[:, 1]
@@ -516,15 +507,17 @@ def phase_full_path(card, errs, frames):
         f"{B * 1000.0 / batch_ms:.2f} frames/s; peak memory "
         f"{peak / 2**30:.2f} GiB (max_memory_allocated)")
 
-    # K4-K7 on the path's own inputs: the 2B matcher outputs before the
-    # speckle filter (K1-K3 on the stacked frames), then the WLS inputs
+    # K1-K7 on the path's own inputs: K1-K3 on the 2B stacked frames
+    # (right view mirrored and swapped), K4/K5 on their matcher outputs
+    # before the speckle filter, then K6/K7 on the WLS inputs
     lrect, rrect = out["left_rectified"], out["right_rectified"]
     cap = params.pre_filter_cap
     lt = plain.sobel_clip(torch.cat([lrect, rrect.flip(-1)]), cap)
     rt = plain.sobel_clip(torch.cat([rrect, lrect.flip(-1)]), cap)
-    dm = sc.wta_lr(sc.aggregate(sc.cost_volume(lt, rt, params), params),
-                   params)
-    del lt, rt
+    C, S = check_kernels(lt, rt, params, errs)
+    del C, lt, rt
+    dm = sc.wta_lr(S, params)
+    del S
     torch.cuda.empty_cache()
     r, ws = params.speckle_range, params.speckle_window_size
     labels, kept = check_speckle(dm, r, ws, errs, "full path")

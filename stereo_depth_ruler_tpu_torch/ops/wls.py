@@ -16,7 +16,7 @@ gives the jnp reference's take-along-axis values bit for bit.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,15 +118,17 @@ def fgs_lambdas(lam: float, num_iters: int):
 
 
 def fgs_filter(src: torch.Tensor, guide: torch.Tensor, lam: float = 8000.0,
-               sigma_color: float = 1.1, num_iters: int = 3) -> torch.Tensor:
+               sigma_color: float = 1.1, num_iters: int = 3,
+               sweep: Callable = fgs_pass) -> torch.Tensor:
     """Fast Global Smoother of ``src`` (..., H, W), or of a stack
     (..., R, H, W) sharing one guide (..., H, W); λ and σ default to the
-    reference's WLS settings."""
+    reference's WLS settings. ``sweep`` runs one pass: this module's plain
+    ``fgs_pass``, or the kernel's wrapper (``ops/wls_cuda.py``)."""
     u = src.to(torch.float32)
-    g = guide.to(torch.float32)
+    g = guide.to(torch.float32).contiguous()
     for lam_t in fgs_lambdas(lam, num_iters):
-        u = fgs_pass(u, g, lam_t, sigma_color, -1)
-        u = fgs_pass(u, g, lam_t, sigma_color, -2)
+        u = sweep(u, g, lam_t, sigma_color, -1)
+        u = sweep(u, g, lam_t, sigma_color, -2)
     return u
 
 
@@ -172,15 +174,19 @@ def wls_disparity_filter(disp_left: torch.Tensor, disp_right: torch.Tensor,
                          guide: torch.Tensor, lam: float = 8000.0,
                          sigma_color: float = 1.1,
                          lrc_thresh: float = 24.0 / 16.0, num_iters: int = 3,
-                         max_disp: Optional[int] = None
+                         max_disp: Optional[int] = None,
+                         gather: Callable = shift_gather_conf,
+                         sweep: Callable = fgs_pass
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Confidence-weighted WLS filtering of (..., H, W) left/right
     disparities guided by the left image: FGS(conf·disp) / FGS(conf), -1.0
     where the smoothed confidence is at most 1e-3. Returns (filtered,
     confidence). ``max_disp`` defaults to W - 1, which gathers every
-    in-range partner."""
+    in-range partner. ``gather`` and ``sweep`` are this module's plain
+    ``shift_gather_conf`` and ``fgs_pass``, or the kernels' wrappers
+    (``ops/wls_cuda.py``)."""
     if max_disp is None:
         max_disp = disp_left.shape[-1] - 1
-    rhs = shift_gather_conf(disp_left, disp_right, max_disp, lrc_thresh)
-    u = fgs_filter(rhs, guide, lam, sigma_color, num_iters)
+    rhs = gather(disp_left, disp_right, max_disp, lrc_thresh)
+    u = fgs_filter(rhs, guide, lam, sigma_color, num_iters, sweep)
     return filtered_disparity(u), rhs.select(-3, 1)

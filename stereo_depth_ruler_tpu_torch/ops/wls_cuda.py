@@ -17,7 +17,7 @@ raises. ``LAUNCHES`` counts kernel launches per wrapper.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -85,28 +85,17 @@ def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
 
 
 def fgs_filter_cuda(u: torch.Tensor, guide: torch.Tensor,
-                    lam: float = 8000.0, sigma_color: float = 1.1,
-                    num_iters: int = 3) -> torch.Tensor:
+                    **kwargs) -> torch.Tensor:
     """``ops/wls.py:fgs_filter`` of (B, 2, H, W) right-hand sides, one
     ``fgs_pass`` launch per iteration and axis."""
-    for lam_t in plain.fgs_lambdas(lam, num_iters):
-        u = fgs_pass(u, guide, lam_t, sigma_color, -1)
-        u = fgs_pass(u, guide, lam_t, sigma_color, -2)
-    return u
+    return plain.fgs_filter(u, guide, sweep=fgs_pass, **kwargs)
 
 
 def wls_disparity_filter_cuda(disp_left: torch.Tensor,
                               disp_right: torch.Tensor, guide: torch.Tensor,
-                              lam: float = 8000.0, sigma_color: float = 1.1,
-                              lrc_thresh: float = 24.0 / 16.0,
-                              num_iters: int = 3,
-                              max_disp: Optional[int] = None
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
     """``ops/wls.py:wls_disparity_filter`` of (B, H, W) disparities on the
-    kernels -> (filtered, confidence)."""
-    if max_disp is None:
-        max_disp = disp_left.shape[-1] - 1
-    rhs = shift_gather_conf(disp_left, disp_right, max_disp, lrc_thresh)
-    u = fgs_filter_cuda(rhs, guide.to(torch.float32).contiguous(), lam,
-                        sigma_color, num_iters)
-    return plain.filtered_disparity(u), rhs[:, 1]
+    kernels -> (filtered, confidence); the same keyword arguments."""
+    return plain.wls_disparity_filter(disp_left, disp_right, guide,
+                                      gather=shift_gather_conf,
+                                      sweep=fgs_pass, **kwargs)

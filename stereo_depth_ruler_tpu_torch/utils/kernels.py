@@ -2,8 +2,9 @@
 
 The sources in ``ops/csrc/*.cu`` expose a plain C interface (no PyTorch
 headers), so ``nvcc`` builds each in seconds; the sources compile in
-parallel, one ``nvcc`` each, and one more call links them. The shared
-library is built on first use into ``stereo_depth_ruler_tpu_torch/_build/``, named by a
+parallel, one ``nvcc`` each, and one more call links them, which keeps
+the build short as sources are added. The shared library is built on
+first use into ``stereo_depth_ruler_tpu_torch/_build/``, named by a
 hash of the sources and flags, so a checkout with nothing built builds
 everything the first time a kernel is launched. There is no fallback: a
 missing ``nvcc`` or a failed build raises.
@@ -69,6 +70,20 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds) -> list:
+    """Run the commands side by side; raise if any fails; return their
+    outputs (stdout and stderr together)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
+
+
 def build() -> Path:
     """Build the kernel library if it is not built yet; return its path.
     The compiler's register and shared-memory report goes to a ``.log``
@@ -84,23 +99,10 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
-        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(_sources(), objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for cmd in jobs]
-        logs = [p.communicate()[0] for p in procs]
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                         for src, obj in zip(_sources(), objs)])
         tmp = Path(work) / "lib.so"
-        link = [nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
-        for cmd, p, log in zip(jobs, procs, logs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{log}")
-        proc = subprocess.run(link, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                               f"{' '.join(link)}\n{proc.stdout}"
-                               f"{proc.stderr}")
+        _run_all([[nvcc, *_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]])
         lib.with_suffix(".log").write_text("".join(logs))
         os.replace(tmp, lib)
     return lib
