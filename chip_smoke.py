@@ -30,7 +30,17 @@ Phases, each of which raises (and exits non-zero) on failure:
    memory; then K1-K7 on that path's own inputs (K1-K3 on the 16 stacked
    frames, 16x720x1280x128) against their plain versions, bitwise, and
    K4-K7 timed; then torch.profiler traces three batches of the
-   full path for the device time per kernel and the device's busy share.
+   full path for the device time per kernel and the device's busy share;
+7. shared path: the full path's configuration with pair_mode="shared"
+   (K1's pair mode builds both matchers' volumes from one cost build, K3's
+   mirror mode runs the right matcher's WTA/LR), at the WLS bar, with
+   launch counts proving both modes ran; every output equal to the stacked
+   path's; ms per batch at batch 8 and ms per process_pair at batch 1 for
+   both pair modes, timed in turns; then K1's pair mode, K2 and K3's mirror
+   mode on the path's own inputs (8x720x1280x128, both volumes) against
+   their plain versions frame by frame, bitwise, the two modes timed, and
+   sgbm_pair_cuda's two maps equal to the stacked matcher's; then a
+   profile of the shared path.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -52,10 +62,14 @@ ROOT = Path(__file__).resolve().parent
 KERNELS = {
     "cost_box": ("stereo_depth_ruler_tpu_torch/ops/csrc/cost_box.cu",
                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:92"),
+    "cost_box_pair": ("stereo_depth_ruler_tpu_torch/ops/csrc/cost_box.cu",
+                      "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:92"),
     "sgm_pass": ("stereo_depth_ruler_tpu_torch/ops/csrc/sgm_pass.cu",
                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
     "wta_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/wta_lr.cu",
                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
+    "wta_lr_mirror": ("stereo_depth_ruler_tpu_torch/ops/csrc/wta_lr.cu",
+                      "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
     "speckle_labels": ("stereo_depth_ruler_tpu_torch/ops/csrc/speckle.cu",
                        "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1656"),
     "speckle_keep": ("stereo_depth_ruler_tpu_torch/ops/csrc/speckle.cu",
@@ -65,6 +79,8 @@ KERNELS = {
     "shift_gather": ("stereo_depth_ruler_tpu_torch/ops/csrc/shift_gather.cu",
                      "stereo_depth_ruler_tpu/ops/wls_pallas.py:147"),
 }
+# the pair modes, launched only by the shared path
+PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DEVICE = "cuda"
@@ -142,6 +158,12 @@ def phase_build():
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", ptxas)]
     log(f"ptxas: {len(regs)} kernel instances, registers "
         f"{min(regs)}..{max(regs)}, spill stores {max(spills)} bytes max")
+    # K1 at block 5 (the main paths'): the single-volume and the pair kernel
+    k1 = re.findall(r"entry function '\w*(cost_box|cost_pair)_kernelILi5E\w*'"
+                    r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers",
+                    ptxas)
+    log("ptxas: K1 at block 5: " + ", ".join(f"{name}_kernel {n} registers"
+                                              for name, n in k1))
 
 
 def _pair(H, W, shift, seed):
@@ -496,7 +518,9 @@ def phase_full_path(card, errs, frames):
     pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
     out, launches, peak, batch_ms = drive(pipe, lefts, rights, [sc, wc])
     log(f"full path launches: {launches}")
-    if set(launches) != set(KERNELS) or min(launches.values()) < 1:
+    if (set(launches) != set(KERNELS)
+            or min(v for k, v in launches.items() if k not in PAIR_MODES) < 1
+            or any(launches[k] for k in PAIR_MODES)):
         raise AssertionError(f"a kernel was not launched: {launches}")
     vfrac, mae = check_output(out, gts, D, "full path (bar valid > 0.95, "
                               "MAE < 0.7)")
@@ -563,6 +587,146 @@ def phase_full_path(card, errs, frames):
         log(f"full path [{card}]: {name}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms{lib}, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}) per launch")
+    # the outputs go to the host, so that the shared path's peak memory
+    # is its own
+    return launches, times, bounds, (pipe, {k: v.cpu() for k, v in
+                                            out.items()}, peak)
+
+
+def in_turns_ms(fns, reps=5):
+    """ms per call of the two functions, timed in the turns a, b, b, a (each
+    turn a warm-up call, then ``reps`` calls between CUDA events); returns
+    each one's two turns."""
+    turns = ([], [])
+    for i in (0, 1, 1, 0):
+        turns[i].append(cuda_ms(fns[i], reps))
+    return turns
+
+
+def phase_shared_path(card, errs, frames, stacked):
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
+                                                       StereoPipeline)
+    rig, lefts, rights, gts = frames
+    B, H, W = lefts.shape
+    D = MAIN[3]
+    params = SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=200, speckle_range=2)
+    cfg = PipelineConfig(sgbm=params, downscale=1, use_wls=True,
+                         lr_mode="right_matcher", pair_mode="shared",
+                         remap_precision="u8")
+    pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
+    out, launches, peak, _ = drive(pipe, lefts, rights, [sc, wc])
+    log(f"shared path launches: {launches}")
+    if (min(v for k, v in launches.items() if k not in ("cost_box", "wta_lr"))
+            < 1 or launches["cost_box"] or launches["wta_lr"]):
+        raise AssertionError(f"the shared path's kernels did not run as "
+                             f"expected: {launches}")
+    vfrac, mae = check_output(out, gts, D, "shared path (bar valid > 0.95, "
+                              "MAE < 0.7)")
+    if not (vfrac > 0.95 and mae < 0.7):
+        raise AssertionError(f"WLS accuracy bar missed: valid {vfrac}, "
+                             f"MAE {mae}")
+    s_pipe, s_out, s_peak = stacked
+    differ = [k for k in s_out if not torch.equal(out[k].cpu(), s_out[k])]
+    if differ:
+        raise AssertionError(f"shared and stacked pipelines differ in {differ}")
+    log(f"shared path: every output equal to the stacked path's "
+        f"({sorted(s_out)})")
+
+    # the A/B, in turns stacked, shared, shared, stacked
+    ab = {f"batch {B}": in_turns_ms([
+              lambda: s_pipe.process_batch(lefts, rights),
+              lambda: pipe.process_batch(lefts, rights)]),
+          "process_pair": in_turns_ms([
+              lambda: s_pipe.process_pair(lefts[0], rights[0]),
+              lambda: pipe.process_pair(lefts[0], rights[0])])}
+    for tag, turns in ab.items():
+        n = 1 if tag == "process_pair" else B
+        for mode, t in zip(("stacked", "shared"), turns):
+            ms = sum(t) / len(t)
+            log(f"A/B [{card}]: {tag}, {mode}: {ms:.3f} ms per call "
+                f"(turns {', '.join(f'{x:.3f}' for x in t)}) -> "
+                f"{n * 1000.0 / ms:.2f} frames/s")
+    log(f"A/B [{card}]: peak memory at batch {B}: stacked "
+        f"{s_peak / 2**30:.2f} GiB, shared {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated)")
+
+    # K1's pair mode, K2 and K3's mirror mode on the path's own inputs, frame
+    # by frame against their plain versions
+    lrect, rrect = out["left_rectified"], out["right_rectified"]
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(lrect, cap)
+    rt = plain.sobel_clip(rrect, cap)
+    C = sc.cost_volume_pair(lt, rt, params)
+    torch.cuda.synchronize()
+    S = sc.aggregate(C, params)
+    torch.cuda.synchronize()
+    disp = {}
+    for apply_lr in (True, False):
+        disp[apply_lr] = sc.wta_lr(S, params, apply_lr, mirror_from=B)
+        torch.cuda.synchronize()
+    err = {"cost_box_pair": 0.0, "sgm_pass": 0.0, "wta_lr_mirror": 0.0}
+    for b in range(B):
+        vols = plain.cost_volume_pair(lt[b], rt[b], params)
+        for i, C_p in ((b, vols[0]), (B + b, vols[1])):
+            err["cost_box_pair"] = max(err["cost_box_pair"],
+                                       max_abs_err(C[i], C_p))
+            S_p = plain.aggregate_paths(C_p, params.P1, params.P2,
+                                        params.num_paths)
+            err["sgm_pass"] = max(err["sgm_pass"], max_abs_err(S[i], S_p))
+            for apply_lr in (True, False):
+                err["wta_lr_mirror"] = max(err["wta_lr_mirror"], max_abs_err(
+                    disp[apply_lr][i],
+                    plain.wta_lr(S_p, params, apply_lr, mirror_lr=i >= B)))
+            del S_p
+        del vols
+    log(f"shared path kernels {2 * B}x{H}x{W}x{D}: max|err| vs plain: "
+        + ", ".join(f"{k} {v}" for k, v in err.items())
+        + f" (valid {float((disp[True] >= 0).float().mean()):.3f})")
+    for k, v in err.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    if any(err.values()):
+        raise AssertionError(f"a pair mode differs from its plain version: "
+                             f"{err}")
+
+    S_f = S.float()
+    times = {"wta_lr_mirror": (
+        cuda_ms(lambda: sc.wta_lr(S, params, mirror_from=B), 3),
+        cuda_ms(lambda: (plain.wta_lr(S_f[:B], params),
+                         plain.wta_lr(S_f[B:], params, mirror_lr=True)), 1),
+        None)}
+    del S, S_f, disp
+    torch.cuda.empty_cache()
+    times["cost_box_pair"] = (
+        cuda_ms(lambda: sc.cost_volume_pair(lt, rt, params), 3),
+        cuda_ms(lambda: plain.cost_volume_pair(lt, rt, params), 1), None)
+    del C
+    torch.cuda.empty_cache()
+    px, el = B * H * W, B * H * W * D
+    # K1 pair: the two images read, both volumes written; ~14 operations per
+    # C_L element as K1 (C_R is the same sums, stored again). K3 mirror: K3's
+    # bytes and operations on the 2B frames
+    bounds = {"cost_box_pair": bound(2 * 4 * px + 2 * 2 * el, 14 * el),
+              "wta_lr_mirror": bound(2 * (4 * el + 4 * px), 2 * 4 * el)}
+    for name, (ms, plain_ms, _) in times.items():
+        log(f"shared path [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) per launch")
+
+    # the matcher's two maps against the stacked matcher's
+    dl, dr = sc.sgbm_pair_cuda(lrect, rrect, params)
+    dd = sc.sgbm_cuda(torch.cat([lrect, rrect.flip(-1)]),
+                      torch.cat([rrect, lrect.flip(-1)]), params)
+    torch.cuda.synchronize()
+    if not (torch.equal(dl, dd[:B]) and torch.equal(dr, dd[B:].flip(-1))):
+        raise AssertionError("sgbm_pair_cuda differs from the stacked pair")
+    log(f"shared path: sgbm_pair_cuda's (disp_l, disp_r) equal to the "
+        f"stacked matcher's on {B} frames")
     return launches, times, bounds, pipe
 
 
@@ -589,7 +753,8 @@ def profile_path(card, pipe, frames, reps=3):
             and e.self_device_time_total > 0]
     kern.sort(key=lambda k: -k[1])
     busy = sum(k[1] for k in kern)
-    log(f"profile [{card}]: {wall_ms / reps:.2f} ms per batch wall (under "
+    log(f"profile {pipe.config.pair_mode} [{card}]: "
+        f"{wall_ms / reps:.2f} ms per batch wall (under "
         f"the profiler), device busy {busy:.2f} ms "
         f"({100 * busy * reps / wall_ms:.1f} %)")
     for name, ms, n in kern[:16]:
@@ -608,11 +773,17 @@ def main():
     phase_matcher()
     frames = render_frames(*MAIN[:3])
     times1, bounds1 = phase_main_path(card, errs, frames)
-    launches, times2, bounds2, pipe = phase_full_path(card, errs, frames)
+    launches, times2, bounds2, stacked = phase_full_path(card, errs, frames)
+    profile_path(card, stacked[0], frames)
+    launches3, times3, bounds3, pipe = phase_shared_path(card, errs, frames,
+                                                         stacked)
+    del stacked
     profile_path(card, pipe, frames)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
-    times, bounds = {**times1, **times2}, {**bounds1, **bounds2}
+    launches.update({k: launches3[k] for k in PAIR_MODES})
+    times = {**times1, **times2, **times3}
+    bounds = {**bounds1, **bounds2, **bounds3}
 
     import torch
     kernels = [{"name": name, "route": "cuda", "source": src,

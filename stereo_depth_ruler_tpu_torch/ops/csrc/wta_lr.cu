@@ -20,6 +20,14 @@
 // deterministic). After a barrier, every thread checks its columns against
 // disp2p at x - round(disp) and writes the final row.
 //
+// Mirror mode (_wta_body's mirror_lr) serves the shared-cost pair's right
+// matcher, whose volume is in un-mirrored orientation: its partner view
+// lies at x + d. Frames from index mirror_from on flip three things: the
+// no-partner test (x + d* + md > W - 1), the scatter target x + d* + md and
+// the check column x + round(disp). The result equals the plain mode on the
+// W-flipped volume, flipped back, so one launch covers the left and the
+// right matcher's path sums.
+//
 // What bounds it on the H100: device-memory bytes, one read of the int32
 // volume (4 B per element) per frame; the row state lives in 12 B per
 // column of shared memory.
@@ -35,9 +43,9 @@ constexpr int THREADS = 256;
 
 template <int VPL>
 __global__ void wta_lr_kernel(const int32_t* __restrict__ S,
-                              float* __restrict__ out, int W, int D, int md,
-                              int uniq, int quant16, int disp12, int apply_lr,
-                              int pk_bits) {
+                              float* __restrict__ out, int H, int W, int D,
+                              int md, int uniq, int quant16, int disp12,
+                              int apply_lr, int mirror_from, int pk_bits) {
   extern __shared__ int smem[];
   float* disp_s = reinterpret_cast<float*>(smem);  // [W]
   int* valid_s = smem + W;                          // [W]
@@ -45,6 +53,7 @@ __global__ void wta_lr_kernel(const int32_t* __restrict__ S,
   const int PK = 1 << pk_bits;
   const size_t row = blockIdx.x;
   const int32_t* Srow = S + row * W * D;
+  const bool mirror = (int)(row / H) >= mirror_from;
 
   for (int x = threadIdx.x; x < W; x += blockDim.x) d2p_s[x] = BIGP;
   __syncthreads();
@@ -88,13 +97,14 @@ __global__ void wta_lr_kernel(const int32_t* __restrict__ S,
     }
     float disp = __fadd_rn(__fadd_rn((float)dstar, off), (float)md);
     if (quant16) disp = __fdiv_rn(rintf(__fmul_rn(disp, 16.0f)), 16.0f);
-    if (dstar + md > x) valid = 0;  // no partner column in the right view
+    // the partner column in the other view; none outside the image
+    const int xr = mirror ? x + dstar + md : x - dstar - md;
+    if (xr < 0 || xr > W - 1) valid = 0;
 
     if (lane == 0) {
       disp_s[x] = disp;
       valid_s[x] = valid;
-      const int xr = x - dstar - md;
-      if (xr >= 0) atomicMin(&d2p_s[xr], key + md);  // s0*PK + d* + md
+      if (xr >= 0 && xr < W) atomicMin(&d2p_s[xr], key + md);  // s0*PK+d*+md
     }
   }
   __syncthreads();
@@ -103,7 +113,8 @@ __global__ void wta_lr_kernel(const int32_t* __restrict__ S,
     const float disp = disp_s[x];
     int valid = valid_s[x];
     if (valid && apply_lr && disp12 >= 0) {
-      const int xr = x - __float2int_rn(disp);
+      const int rd = __float2int_rn(disp);
+      const int xr = mirror ? x + rd : x - rd;
       if (xr >= 0 && xr < W) {
         const int p = d2p_s[xr];
         const float d2 = p < BIGP ? (float)(p & (PK - 1)) : -1.0f;
@@ -118,21 +129,23 @@ __global__ void wta_lr_kernel(const int32_t* __restrict__ S,
 template <int VPL>
 cudaError_t launch(const int32_t* S, float* out, int B, int H, int W, int D,
                    int md, int uniq, int quant16, int disp12, int apply_lr,
-                   int pk_bits, cudaStream_t stream) {
+                   int mirror_from, int pk_bits, cudaStream_t stream) {
   const size_t smem = 3 * sizeof(int) * (size_t)W;
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   wta_lr_kernel<VPL><<<B * H, THREADS, smem, stream>>>(
-      S, out, W, D, md, uniq, quant16, disp12, apply_lr, pk_bits);
+      S, out, H, W, D, md, uniq, quant16, disp12, apply_lr, mirror_from,
+      pk_bits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // S: (B, H, W, D) int32 path sums; out: (B, H, W) float32 disparity with
-// -1.0 where invalid. md >= 0; D a multiple of 16, at most 256; W <= 4096.
+// -1.0 where invalid; frames b >= mirror_from in mirror mode. md >= 0; D a
+// multiple of 16, at most 256; W <= 4096.
 extern "C" int sdr_wta_lr(const int32_t* S, float* out, int B, int H, int W,
                           int D, int md, int uniq, int quant16, int disp12,
-                          int apply_lr, void* stream) {
+                          int apply_lr, int mirror_from, void* stream) {
   if (D < 16 || D > 256 || D % 16 || md < 0) return (int)cudaErrorInvalidValue;
   int pk_bits = 0;
   while ((1 << pk_bits) <= D + md) ++pk_bits;  // PK = 1 << bit_length(D+md)
@@ -140,7 +153,7 @@ extern "C" int sdr_wta_lr(const int32_t* S, float* out, int B, int H, int W,
 #define SDR_WTA(V)                                                          \
   case V:                                                                   \
     return (int)launch<V>(S, out, B, H, W, D, md, uniq, quant16, disp12,    \
-                          apply_lr, pk_bits, s);
+                          apply_lr, mirror_from, pk_bits, s);
   switch ((D + 31) / 32) {
     SDR_WTA(1) SDR_WTA(2) SDR_WTA(3) SDR_WTA(4)
     SDR_WTA(5) SDR_WTA(6) SDR_WTA(7) SDR_WTA(8)

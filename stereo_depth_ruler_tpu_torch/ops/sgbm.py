@@ -14,6 +14,12 @@ convolution: cuDNN would compute it in TF32 and break the exactness.
 The speckle filter is the plain version of the CCL labels and keep kernels
 (csrc/speckle.cu): labels by the segmented-min sweeps of the TPU labels
 kernel, iterated to convergence, then a histogram of the labels.
+
+The shared-cost pair (``sgbm_pair``) runs the right matcher on a volume in
+un-mirrored orientation: ``cost_volume_pair`` defines it as the mirrored
+build flipped back, and ``wta_lr(..., mirror_lr=True)`` is the WTA/LR of
+the mirrored volume flipped back, written without the flips. The 8-path
+sum needs no mirrored form: its directions are closed under dx -> -dx.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from .sgbm_ref import SGBMParams
 __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "cost_volume", "directional_pass", "aggregate_paths", "wta",
            "lr_check", "wta_lr", "speckle_labels", "speckle_keep",
-           "speckle_filter", "sgbm", "compute_disparity_pair"]
+           "speckle_filter", "sgbm", "compute_disparity_pair",
+           "cost_volume_pair", "sgbm_pair"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -110,6 +117,22 @@ def cost_volume(lt: torch.Tensor, rt: torch.Tensor,
     return box_filter_volume(C, params.block_size)
 
 
+def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C_L, C_R) of Sobel-clipped (..., H, W) images: C_L is
+    ``cost_volume(lt, rt)``, C_R the right matcher's volume in un-mirrored
+    orientation, the cost volume of the mirrored, swapped images flipped
+    back along W. The Sobel of a mirrored image is 2*cap minus the mirrored
+    Sobel. The plain version of the cost kernel's pair mode, which gets
+    C_R from C_L by the shear C_R(y, x, d) = C_L(y, x + d + md, d) wherever
+    no box window reaches a border column."""
+    cap = params.pre_filter_cap
+    lt_m = (2.0 * cap - rt).flip(-1)
+    rt_m = (2.0 * cap - lt).flip(-1)
+    return (cost_volume(lt, rt, params),
+            cost_volume(lt_m, rt_m, params).flip(-2))
+
+
 def _dp_update(Lprev: torch.Tensor, c: torch.Tensor,
                P1: float, P2: float) -> torch.Tensor:
     """One SGM step: Lprev (..., D) predecessor, c (..., D) cost -> L."""
@@ -168,10 +191,12 @@ def aggregate_paths(cost: torch.Tensor, P1: float, P2: float,
     return S
 
 
-def wta(S: torch.Tensor, params: SGBMParams
+def wta(S: torch.Tensor, params: SGBMParams, mirror_lr: bool = False
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Winner-take-all + uniqueness + subpixel -> (disp f32, valid bool),
-    the rules of ``sgbm_ref.wta_np``. Ties go to the smallest d."""
+    the rules of ``sgbm_ref.wta_np``. Ties go to the smallest d. A column
+    whose partner x - d* - md (x + d* + md with ``mirror_lr``) lies outside
+    the image is invalid."""
     D, W = S.shape[-1], S.shape[-2]
     d_star = torch.argmin(S, dim=-1)
     s0 = S.amin(dim=-1)
@@ -194,16 +219,21 @@ def wta(S: torch.Tensor, params: SGBMParams
     if params.quantize_16:
         disp = torch.round(disp * 16.0) / 16.0
     xs = torch.arange(W, device=S.device)
-    valid &= (d_star + params.min_disparity) <= xs
+    if mirror_lr:
+        valid &= xs + d_star + params.min_disparity <= W - 1
+    else:
+        valid &= (d_star + params.min_disparity) <= xs
     return disp.to(torch.float32), valid
 
 
 def _winner_scatter_disp2(s0i: torch.Tensor, d_star: torch.Tensor,
-                          D: int, min_disp: int) -> torch.Tensor:
+                          D: int, min_disp: int,
+                          mirror_lr: bool = False) -> torch.Tensor:
     """Right-view disparity from the per-column WTA winners (OpenCV's
     internal disp2): the winner (s0, d*) of column x lands at
-    x - d* - min_disp; collisions keep the lower cost, ties the smaller d.
-    D masked left-shifts of an int32 (cost, d)-packed map.
+    x - d* - min_disp (x + d* + min_disp with ``mirror_lr``); collisions
+    keep the lower cost, ties the smaller d. D masked shifts of an int32
+    (cost, d)-packed map.
 
     s0i, d_star: (..., W) int32. Returns (..., W) float32, -1 where no
     winner landed."""
@@ -220,7 +250,9 @@ def _winner_scatter_disp2(s0i: torch.Tensor, d_star: torch.Tensor,
         cand = packed
         if s:
             fill = torch.full_like(packed[..., :s], BIGP)
-            cand = torch.cat([packed[..., s:], fill], dim=-1)
+            cand = (torch.cat([fill, packed[..., :W - s]], dim=-1)
+                    if mirror_lr else
+                    torch.cat([packed[..., s:], fill], dim=-1))
         okm = (cand & (PK - 1)) == s
         disp2p = torch.minimum(disp2p, torch.where(okm, cand,
                                                    torch.full_like(cand,
@@ -230,30 +262,35 @@ def _winner_scatter_disp2(s0i: torch.Tensor, d_star: torch.Tensor,
 
 
 def lr_check(S: torch.Tensor, disp: torch.Tensor, valid: torch.Tensor,
-             params: SGBMParams) -> torch.Tensor:
+             params: SGBMParams, mirror_lr: bool = False) -> torch.Tensor:
     """Consistency check against the right-view disparity built from the
-    per-column WTA winners of the same volume (``sgbm_ref.lr_check_np``)."""
+    per-column WTA winners of the same volume (``sgbm_ref.lr_check_np``),
+    read at x - round(disp) (x + round(disp) with ``mirror_lr``)."""
     if params.disp12_max_diff < 0:
         return valid
     D, W = S.shape[-1], S.shape[-2]
     d_star = torch.argmin(S, dim=-1).to(torch.int32)
     s0i = S.amin(dim=-1).to(torch.int32)            # exact small ints
-    disp2 = _winner_scatter_disp2(s0i, d_star, D, params.min_disparity)
-    xr = (torch.arange(W, device=S.device, dtype=torch.int32)
-          - torch.round(disp).to(torch.int32))
+    disp2 = _winner_scatter_disp2(s0i, d_star, D, params.min_disparity,
+                                  mirror_lr)
+    rd = torch.round(disp).to(torch.int32)
+    xs = torch.arange(W, device=S.device, dtype=torch.int32)
+    xr = xs + rd if mirror_lr else xs - rd
     xr_ok = (xr >= 0) & (xr <= W - 1)
     d2 = torch.gather(disp2, -1, torch.clamp(xr, 0, W - 1).to(torch.int64))
     consistent = (d2 >= 0) & ((d2 - disp).abs() <= params.disp12_max_diff)
     return valid & torch.where(xr_ok, consistent, torch.ones_like(xr_ok))
 
 
-def wta_lr(S: torch.Tensor, params: SGBMParams,
-           apply_lr: bool = True) -> torch.Tensor:
+def wta_lr(S: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
+           mirror_lr: bool = False) -> torch.Tensor:
     """wta, then lr_check, then -1.0 where invalid: the plain version of
-    the WTA/LR kernel (csrc/wta_lr.cu)."""
-    disp, valid = wta(S, params)
+    the WTA/LR kernel (csrc/wta_lr.cu). With ``mirror_lr`` S is a right
+    view's volume in un-mirrored orientation (the secondary view lies at
+    x + d), and the result equals ``wta_lr(S.flip(-2)).flip(-1)``."""
+    disp, valid = wta(S, params, mirror_lr)
     if apply_lr:
-        valid = lr_check(S, disp, valid, params)
+        valid = lr_check(S, disp, valid, params, mirror_lr)
     return torch.where(valid, disp, torch.full_like(disp, -1.0))
 
 
@@ -384,3 +421,25 @@ def compute_disparity_pair(left: torch.Tensor, right: torch.Tensor,
     disp_l = sgbm(left, right, params)
     disp_r = sgbm(right.flip(-1), left.flip(-1), params).flip(-1)
     return disp_l, disp_r
+
+
+def sgbm_pair(left: torch.Tensor, right: torch.Tensor,
+              params: SGBMParams = SGBMParams()
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``compute_disparity_pair`` from one cost build: Sobel, then
+    ``cost_volume_pair``, the path sums of both volumes, the WTA/LR (the
+    mirrored form for the right view) and the speckle filter on both maps.
+    The plain counterpart of the JAX package's ``sgbm_pair_pallas``."""
+    cap = params.pre_filter_cap
+    vols = cost_volume_pair(sobel_clip(left, cap), sobel_clip(right, cap),
+                            params)
+    out = []
+    for C, mirror in zip(vols, (False, True)):
+        S = aggregate_paths(C, params.P1, params.P2, params.num_paths)
+        disp = wta_lr(S, params, mirror_lr=mirror)
+        if params.speckle_window_size > 0:
+            disp = speckle_keep(disp, speckle_labels(disp,
+                                                     params.speckle_range),
+                                params.speckle_window_size)
+        out.append(disp)
+    return out[0], out[1]

@@ -1,12 +1,17 @@
 """The SGBM matcher on five hand-written CUDA kernels (``ops/csrc``).
 
-Counterpart of ``stereo_depth_ruler_tpu/ops/sgbm_pallas.py:sgbm_pallas``:
-Sobel in plain torch, then
+Counterpart of ``stereo_depth_ruler_tpu/ops/sgbm_pallas.py:sgbm_pallas``
+and, for the shared-cost pair, of ``sgbm_pair_pallas``: Sobel in plain
+torch, then
 
 - K1 ``cost_volume``  (csrc/cost_box.cu): BT cost + box sum -> int16 C;
+  ``cost_volume_pair``, its pair mode, writes the left and the right
+  matcher's volumes from one cost build;
 - K2 ``sgm_pass``     (csrc/sgm_pass.cu): one launch per path direction,
   adding L into an int32 S (the 8-path sum reaches ~70000, past int16);
 - K3 ``wta_lr``       (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR;
+  ``mirror_from`` puts the trailing frames, the right matcher's, in its
+  mirror mode;
 - K4 ``speckle_labels`` (csrc/speckle.cu): union-find CCL -> int32 labels;
 - K5 ``speckle_keep``   (csrc/speckle.cu): label histogram -> the
   disparity without the components of at most speckle_window_size pixels.
@@ -14,10 +19,13 @@ Sobel in plain torch, then
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
 ``ops/sgbm.py``; a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts kernel launches per wrapper; nothing else touches it.
+counts kernel launches per wrapper and mode (``cost_box_pair`` and
+``wta_lr_mirror`` are the pair modes); nothing else touches it.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,12 +34,12 @@ from .sgbm_ref import SGBMParams
 from ..utils import kernels
 from . import sgbm as plain
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume", "sgm_pass",
-           "aggregate", "wta_lr", "speckle_labels", "speckle_keep",
-           "sgbm_cuda"]
+__all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
+           "cost_volume_pair", "sgm_pass", "aggregate", "wta_lr",
+           "speckle_labels", "speckle_keep", "sgbm_cuda", "sgbm_pair_cuda"]
 
-LAUNCHES = {"cost_box": 0, "sgm_pass": 0, "wta_lr": 0, "speckle_labels": 0,
-            "speckle_keep": 0}
+LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
+            "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0}
 
 
 def reset_launch_counts() -> None:
@@ -68,25 +76,45 @@ def _check_params(params: SGBMParams) -> None:
                          f"[16, 256], got {params.num_disparities}")
 
 
-def cost_volume(lt: torch.Tensor, rt: torch.Tensor,
-                params: SGBMParams) -> torch.Tensor:
-    """(B, H, W) Sobel-clipped images -> (B, H, W, D) int16 boxed BT cost."""
-    if not _on_cuda(lt, rt):
-        return plain.cost_volume(lt, rt, params).to(torch.int16)
+def _cost_box(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams,
+              pair: bool) -> torch.Tensor:
+    """Launch K1 on CUDA images, in pair mode or not."""
     _require(lt, torch.float32, 3, "lt")
     _require(rt, torch.float32, 3, "rt")
     if lt.shape != rt.shape:
         raise ValueError(f"shape mismatch {tuple(lt.shape)} {tuple(rt.shape)}")
     B, H, W = lt.shape
     D = params.num_disparities
-    out = torch.empty((B, H, W, D), dtype=torch.int16, device=lt.device)
+    out = torch.empty(((2 if pair else 1) * B, H, W, D), dtype=torch.int16,
+                      device=lt.device)
     rc = kernels.load().sdr_cost_box(lt.data_ptr(), rt.data_ptr(),
                                      out.data_ptr(), B, H, W, D,
                                      params.min_disparity, params.block_size,
-                                     _stream())
-    kernels.check(rc, "cost_box")
-    LAUNCHES["cost_box"] += 1
+                                     int(pair), _stream())
+    name = "cost_box_pair" if pair else "cost_box"
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def cost_volume(lt: torch.Tensor, rt: torch.Tensor,
+                params: SGBMParams) -> torch.Tensor:
+    """(B, H, W) Sobel-clipped images -> (B, H, W, D) int16 boxed BT cost."""
+    if not _on_cuda(lt, rt):
+        return plain.cost_volume(lt, rt, params).to(torch.int16)
+    return _cost_box(lt, rt, params, pair=False)
+
+
+def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor,
+                     params: SGBMParams) -> torch.Tensor:
+    """(B, H, W) Sobel-clipped images -> one (2B, H, W, D) int16 volume:
+    the left matcher's C_L in frames [0, B) and the right matcher's C_R, in
+    un-mirrored orientation, in frames [B, 2B) (``plain.cost_volume_pair``),
+    from one cost build."""
+    if not _on_cuda(lt, rt):
+        return torch.cat(plain.cost_volume_pair(lt, rt, params)).to(
+            torch.int16)
+    return _cost_box(lt, rt, params, pair=True)
 
 
 def sgm_pass(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int,
@@ -122,21 +150,32 @@ def aggregate(C: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     return S
 
 
-def wta_lr(S: torch.Tensor, params: SGBMParams,
-           apply_lr: bool = True) -> torch.Tensor:
+def wta_lr(S: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
+           mirror_from: Optional[int] = None) -> torch.Tensor:
     """(B, H, W, D) int32 path sums -> (B, H, W) float32 disparity, -1.0
-    where invalid (uniqueness, no partner column, LR check)."""
+    where invalid (uniqueness, no partner column, LR check). Frames from
+    index ``mirror_from`` on are right-matcher volumes in un-mirrored
+    orientation and get the mirrored WTA/LR (``plain.wta_lr``'s
+    ``mirror_lr``); None mirrors none."""
+    B = S.shape[0]
+    m = B if mirror_from is None else mirror_from
+    if not 0 <= m <= B:
+        raise ValueError(f"mirror_from must be in [0, {B}], got {m}")
     if not _on_cuda(S):
-        return plain.wta_lr(S.to(torch.float32), params, apply_lr)
+        S = S.to(torch.float32)
+        return torch.cat([plain.wta_lr(S[:m], params, apply_lr),
+                          plain.wta_lr(S[m:], params, apply_lr,
+                                       mirror_lr=True)])
     _require(S, torch.int32, 4, "S")
-    B, H, W, D = S.shape
+    _, H, W, D = S.shape
     out = torch.empty((B, H, W), dtype=torch.float32, device=S.device)
     rc = kernels.load().sdr_wta_lr(
         S.data_ptr(), out.data_ptr(), B, H, W, D, params.min_disparity,
         params.uniqueness_ratio, int(params.quantize_16),
-        params.disp12_max_diff, int(apply_lr), _stream())
-    kernels.check(rc, "wta_lr")
-    LAUNCHES["wta_lr"] += 1
+        params.disp12_max_diff, int(apply_lr), m, _stream())
+    name = "wta_lr" if m == B else "wta_lr_mirror"
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -192,17 +231,54 @@ def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
     WTA and the LR check, then the speckle filter when
     ``speckle_window_size > 0``."""
     _check_params(params)
-    if left.dim() != 3 or left.shape != right.shape:
-        raise ValueError(f"need two (B, H, W) images of one shape, got "
-                         f"{tuple(left.shape)} {tuple(right.shape)}")
-    cap = params.pre_filter_cap
-    lt = plain.sobel_clip(left, cap).contiguous()
-    rt = plain.sobel_clip(right, cap).contiguous()
+    lt, rt = _sobel_pair(left, right, params)
     C = cost_volume(lt, rt, params)
     S = aggregate(C, params)
     disp = wta_lr(S, params, apply_lr)
     del C, S
+    return _speckle(disp, params)
+
+
+def _sobel_pair(left: torch.Tensor, right: torch.Tensor, params: SGBMParams
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if left.dim() != 3 or left.shape != right.shape:
+        raise ValueError(f"need two (B, H, W) images of one shape, got "
+                         f"{tuple(left.shape)} {tuple(right.shape)}")
+    cap = params.pre_filter_cap
+    return (plain.sobel_clip(left, cap).contiguous(),
+            plain.sobel_clip(right, cap).contiguous())
+
+
+def _speckle(disp: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     if params.speckle_window_size > 0:
         labels = speckle_labels(disp, params.speckle_range)
         disp = speckle_keep(disp, labels, params.speckle_window_size)
     return disp
+
+
+def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
+                   params: SGBMParams = SGBMParams()
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) float32 pair -> the left and the right matcher's (B, H, W)
+    disparities, invalid -1.0, from one cost build: K1's pair mode writes
+    both volumes into one (2B, H, W, D) buffer, K2 sums the paths of all 2B
+    frames (the path sum is mirror-equivariant, so the right volume needs
+    no mirrored pass), K3 runs the right half in mirror mode, then the
+    speckle filter on all 2B maps. Bitwise equal to ``sgbm_cuda`` on the
+    stacked pair (the right matcher on mirrored, swapped frames, flipped
+    back) at every width."""
+    _check_params(params)
+    if params.min_disparity != 0:
+        raise ValueError("the shared-cost pair needs min_disparity 0, got "
+                         f"{params.min_disparity}")
+    if params.num_paths < 4:
+        raise ValueError("the shared-cost pair needs 4 or 8 paths, got "
+                         f"{params.num_paths}")
+    lt, rt = _sobel_pair(left, right, params)
+    B = lt.shape[0]
+    C = cost_volume_pair(lt, rt, params)
+    S = aggregate(C, params)
+    disp = wta_lr(S, params, mirror_from=B)
+    del C, S
+    disp = _speckle(disp, params)
+    return disp[:B], disp[B:]

@@ -11,9 +11,12 @@ the pipeline never moves to the CPU by itself.
 With ``use_wls=True`` and ``lr_mode="right_matcher"`` (the defaults, the
 reference's flow) the left and the right matcher run as one matcher call
 on the stacked 2N frames, and the WLS filter smooths the left disparity
-with the LR confidence. ``lr_mode="fast"`` is the in-matcher LR check.
-The shared-cost pair (``pair_mode="shared"``) is not ported yet and
-raises NotImplementedError.
+with the LR confidence. ``pair_mode="shared"`` builds the right matcher's
+cost volume from the left one's (``sgbm_pair_cuda``) instead; the two
+pair modes give bit-identical maps. The JAX package falls back to the
+stacked pair where its kernel's on-chip memory is too small
+(8 * D * W > 2^21); the port has no such limit and runs the shared pair at
+every width. ``lr_mode="fast"`` is the in-matcher LR check.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .ops.sgbm_ref import SGBMParams
 from .metrics import batch_frame_stats
 from .ops.remap import RemapGrid, build_remap_grids, remap_bilinear
 from .ops.reproject import reproject_to_3d
-from .ops.sgbm_cuda import sgbm_cuda
+from .ops.sgbm_cuda import sgbm_cuda, sgbm_pair_cuda
 from .ops.wls_cuda import wls_disparity_filter_cuda
 
 __all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x"]
@@ -75,9 +78,8 @@ class PipelineConfig:
 def _check_supported(cfg: PipelineConfig) -> None:
     if cfg.lr_mode not in ("right_matcher", "fast", "none"):
         raise ValueError(f"unknown lr_mode {cfg.lr_mode!r}")
-    if cfg.pair_mode != "stacked":
-        raise NotImplementedError(
-            f"pair_mode={cfg.pair_mode!r} is not ported yet; use 'stacked'")
+    if cfg.pair_mode not in ("stacked", "shared"):
+        raise ValueError(f"unknown pair_mode {cfg.pair_mode!r}")
 
 
 def _resolve_device(device) -> torch.device:
@@ -144,15 +146,19 @@ class StereoPipeline:
             left = downscale2x(left)
             right = downscale2x(right)
         if cfg.use_wls and cfg.lr_mode == "right_matcher":
-            # the left matcher and the right one (the left matcher on the
-            # mirrored, swapped pair) as one call on 2N frames
-            n = left.shape[0]
-            dd = sgbm_cuda(torch.cat([left, right.flip(-1)]).contiguous(),
-                           torch.cat([right, left.flip(-1)]).contiguous(),
-                           cfg.sgbm)
-            disp_r = dd[n:].flip(-1).contiguous()
+            if cfg.pair_mode == "shared":
+                disp_l, disp_r = sgbm_pair_cuda(left.contiguous(),
+                                                right.contiguous(), cfg.sgbm)
+            else:
+                # the left matcher and the right one (the left matcher on
+                # the mirrored, swapped pair) as one call on 2N frames
+                n = left.shape[0]
+                dd = sgbm_cuda(torch.cat([left, right.flip(-1)]).contiguous(),
+                               torch.cat([right, left.flip(-1)]).contiguous(),
+                               cfg.sgbm)
+                disp_l, disp_r = dd[:n], dd[n:].flip(-1).contiguous()
             D = cfg.sgbm.num_disparities + cfg.sgbm.min_disparity
-            disp, conf = wls_disparity_filter_cuda(dd[:n], disp_r, left,
+            disp, conf = wls_disparity_filter_cuda(disp_l, disp_r, left,
                                                    max_disp=D)
         else:
             disp = sgbm_cuda(left.contiguous(), right.contiguous(), cfg.sgbm,

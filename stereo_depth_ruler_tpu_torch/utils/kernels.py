@@ -38,12 +38,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # lt, rt, out, B, H, W, D, md, block, stream
-    "sdr_cost_box": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # lt, rt, out, B, H, W, D, md, block, pair, stream
+    "sdr_cost_box": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # C, S, B, H, W, D, dy, dx, P1, P2, acc, stream
     "sdr_sgm_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # S, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr, stream
-    "sdr_wta_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # S, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr, mirror_from,
+    # stream
+    "sdr_wta_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # disp, labels, B, H, W, max_diff, stream
     "sdr_speckle_labels": [_P, _P, _I, _I, _I, _F, _P],
     # disp, labels, sizes, out, B, H, W, max_size, stream

@@ -69,6 +69,44 @@ def test_kernels_match_plain(cuda, H, W, kw):
         assert torch.equal(got, plain.wta_lr(S_p, params, apply_lr))
 
 
+@pytest.mark.parametrize("H,W,kw", [
+    (32, 48, dict(num_disparities=16)),
+    (40, 72, dict(num_disparities=48, block_size=1)),      # r = 0
+    (24, 24, dict(num_disparities=16)),                    # all band
+    (36, 100, dict(num_disparities=32, block_size=7, min_disparity=3,
+                   quantize_16=False)),
+])
+def test_pair_modes_match_plain(cuda, H, W, kw):
+    """K1's pair mode and K3's mirror mode against their plain versions;
+    then the shared pair against the stacked one."""
+    params = SGBMParams(speckle_window_size=0, **kw)
+    D = params.num_disparities
+    left, right = pair(H, W, D, seed=W)
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    C = sc.cost_volume_pair(lt, rt, params)
+    torch.cuda.synchronize()
+    C_L, C_R = plain.cost_volume_pair(lt, rt, params)
+    assert torch.equal(C.float(), torch.cat([C_L, C_R]))
+    S = sc.aggregate(C, params)
+    torch.cuda.synchronize()
+    S_p = S.float()
+    for apply_lr in (True, False):
+        got = sc.wta_lr(S, params, apply_lr, mirror_from=2)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:2], plain.wta_lr(S_p[:2], params, apply_lr))
+        assert torch.equal(got[2:], plain.wta_lr(S_p[2:], params, apply_lr,
+                                                 mirror_lr=True))
+    if params.min_disparity == 0:
+        l, r = torch.tensor(left, device=cuda), torch.tensor(right,
+                                                             device=cuda)
+        params = SGBMParams(speckle_window_size=20, **kw)
+        dl, dr = sc.sgbm_pair_cuda(l, r, params)
+        dd = sc.sgbm_cuda(torch.cat([l, r.flip(-1)]),
+                          torch.cat([r, l.flip(-1)]), params)
+        assert torch.equal(dl, dd[:2]) and torch.equal(dr, dd[2:].flip(-1))
+
+
 @pytest.mark.parametrize("speckle", [0, 20])
 def test_matcher_matches_numpy_oracle(cuda, speckle):
     rig = StereoRig.synthetic(width=48, height=32, focal=50.0,
