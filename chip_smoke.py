@@ -31,7 +31,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    frames, 16x720x1280x128) against their plain versions, bitwise, and
    K4-K7 timed; then torch.profiler traces three batches of the
    full path for the device time per kernel and the device's busy share;
-7. shared path: the full path's configuration with pair_mode="shared"
+   the full path launches exactly K1-K7;
+7. sort family: on the full path's 16 matcher maps (before the speckle
+   filter) and their K4 labels, a counted run of the capped
+   speckle_filter (max_iters 3), speckle_keep_seeded and
+   equal_value_counts, which must launch the sweep kernel's two modes,
+   the radix sort's two and the sorted-run kernel's three; then each of
+   them against its plain version, bitwise: the sweep's labels mode at
+   1, 2 and 3 rounds and converged (equal to K4) on the maps and the
+   720x1280 serpentine, its propagate mode, the sorts against
+   torch.sort(stable=True) on 16 x 2^20 keys, the run modes, the
+   compositions, the seeded keep against K5's; then times (kernel,
+   plain, torch.sort for the sorts) and bounds;
+8. shared path: the full path's configuration with pair_mode="shared"
    (K1's pair mode builds both matchers' volumes from one cost build, K3's
    mirror mode runs the right matcher's WTA/LR), at the WLS bar, with
    launch counts proving both modes ran; every output equal to the stacked
@@ -78,9 +90,33 @@ KERNELS = {
                  "stereo_depth_ruler_tpu/ops/wls_pallas.py:70"),
     "shift_gather": ("stereo_depth_ruler_tpu_torch/ops/csrc/shift_gather.cu",
                      "stereo_depth_ruler_tpu/ops/wls_pallas.py:147"),
+    "sweep_labels": ("stereo_depth_ruler_tpu_torch/ops/csrc/sweep.cu",
+                     "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1656"),
+    "sweep_propagate": ("stereo_depth_ruler_tpu_torch/ops/csrc/sweep.cu",
+                        "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1781"),
+    "radix_sort_keys": ("stereo_depth_ruler_tpu_torch/ops/csrc/radix_sort.cu",
+                        "stereo_depth_ruler_tpu/ops/sort_tpu.py:404"),
+    "radix_sort_pairs": ("stereo_depth_ruler_tpu_torch/ops/csrc/radix_sort.cu",
+                         "stereo_depth_ruler_tpu/ops/sort_tpu.py:89"),
+    "sorted_runs_sizes": (
+        "stereo_depth_ruler_tpu_torch/ops/csrc/sorted_runs.cu",
+        "stereo_depth_ruler_tpu/ops/sort_tpu.py:317"),
+    "sorted_runs_keep": (
+        "stereo_depth_ruler_tpu_torch/ops/csrc/sorted_runs.cu",
+        "stereo_depth_ruler_tpu/ops/sort_tpu.py:455"),
+    "sorted_runs_roots": (
+        "stereo_depth_ruler_tpu_torch/ops/csrc/sorted_runs.cu",
+        "stereo_depth_ruler_tpu/ops/sort_tpu.py:510"),
 }
 # the pair modes, launched only by the shared path
 PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
+# the kernels the full path launches, and no other
+FULL_PATH = {"cost_box", "sgm_pass", "wta_lr", "speckle_labels",
+             "speckle_keep", "fgs_pass", "shift_gather"}
+# the sort family's kernels, launched by its entry points only
+SORT_FAMILY = ("sweep_labels", "sweep_propagate", "radix_sort_keys",
+               "radix_sort_pairs", "sorted_runs_sizes", "sorted_runs_keep",
+               "sorted_runs_roots")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 DEVICE = "cuda"
@@ -518,10 +554,9 @@ def phase_full_path(card, errs, frames):
     pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
     out, launches, peak, batch_ms = drive(pipe, lefts, rights, [sc, wc])
     log(f"full path launches: {launches}")
-    if (set(launches) != set(KERNELS)
-            or min(v for k, v in launches.items() if k not in PAIR_MODES) < 1
-            or any(launches[k] for k in PAIR_MODES)):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if {k for k, v in launches.items() if v} != FULL_PATH:
+        raise AssertionError(f"the full path's kernels did not run as "
+                             f"expected: {launches}")
     vfrac, mae = check_output(out, gts, D, "full path (bar valid > 0.95, "
                               "MAE < 0.7)")
     if not (vfrac > 0.95 and mae < 0.7):
@@ -588,9 +623,159 @@ def phase_full_path(card, errs, frames):
             f"{plain_ms:.3f} ms{lib}, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}) per launch")
     # the outputs go to the host, so that the shared path's peak memory
-    # is its own
+    # is its own; the matcher maps and their labels feed the sort family
     return launches, times, bounds, (pipe, {k: v.cpu() for k, v in
-                                            out.items()}, peak)
+                                            out.items()}, peak), (dm, labels)
+
+
+def phase_sort_family(card, errs, maps, r, ws):
+    """The sort family's entry points on the full path's 16 matcher maps
+    before the speckle filter (``maps``: the maps and their K4 labels, 16 x
+    2^20 sort keys per call), range ``r`` and window ``ws``: one counted
+    run of the capped speckle_filter, the seeded keep and
+    equal_value_counts; then each new kernel and mode against its plain
+    version, bitwise, on those maps and the 720x1280 serpentine; the sweep
+    run to convergence against K4; then times and bounds."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import sort as splain
+    from stereo_depth_ruler_tpu_torch.ops import sort_cuda as soc
+    dm, labels = maps
+    B, H, W = dm.shape
+    torch.cuda.synchronize()
+    sc.reset_launch_counts()
+    soc.reset_launch_counts()
+    kept = sc.speckle_filter(dm, ws, r, max_iters=3)
+    seeded = sc.speckle_keep_seeded(labels, ws)
+    counts = soc.equal_value_counts(labels)
+    torch.cuda.synchronize()
+    launches = {**sc.LAUNCHES, **soc.LAUNCHES}
+    log(f"sort family launches: {launches}")
+    if {k for k, v in launches.items() if v} != set(SORT_FAMILY):
+        raise AssertionError(f"the sort family's kernels did not run as "
+                             f"expected: {launches}")
+
+    snake = serpentine(*SERPENTINE)
+    ds = torch.tensor(np.stack([snake, snake[::-1, ::-1].copy()]),
+                      device=DEVICE)
+    ls = sc.speckle_labels(ds, 1.0)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    err = dict.fromkeys(SORT_FAMILY, 0.0)
+
+    def hold(name, got, want):
+        err[name] = max(err[name], max_abs_err(got, want))
+
+    seeds = []   # sparse random seeds, one in a thousand pixels
+    for d, lab, md in ((dm, labels, r), (ds, ls, 1.0)):
+        for k in (1, 2, 3):
+            hold("sweep_labels", sc.sweep_labels(d, md, k),
+                 plain.speckle_labels(d, md, k))
+        hold("sweep_labels", sc.sweep_labels(d, md), lab)   # K4's
+        seeds.append((torch.rand(lab.shape, generator=g, device=DEVICE)
+                      < 1e-3).to(torch.int32))
+        for k in (2, 0):
+            hold("sweep_propagate", sc.propagate_keep(lab, seeds[-1], k),
+                 plain.propagate_keep(lab, seeds[-1], k))
+    key, n, n2, L, R = splain.pack_batched(labels)
+    skey = soc.sort_keys(key)
+    hold("radix_sort_keys", skey,
+         torch.sort(key.reshape(B, -1), stable=True).values.reshape(key.shape))
+    val = torch.randint(0, 2 ** 31 - 1, key.shape, generator=g,
+                        device=DEVICE, dtype=torch.int32)
+    pos = splain.positions(key)
+    for v in (val, pos):
+        got = soc.sort_pairs(key, v)
+        want, idx = torch.sort(key.reshape(B, -1), stable=True)
+        hold("radix_sort_pairs", got[0], want.reshape(key.shape))
+        hold("radix_sort_pairs", got[1], torch.gather(
+            v.reshape(B, -1), 1, idx).reshape(key.shape))
+    sidx = got[1]
+    hold("sorted_runs_sizes", soc.run_sizes(skey), splain.run_sizes(skey))
+    hold("sorted_runs_sizes", soc.run_sizes(skey, sidx, n),
+         splain.run_sizes(skey, sidx, n))
+    hold("sorted_runs_sizes", counts, splain.equal_value_counts(labels))
+    hold("sorted_runs_keep", soc.run_keep(skey, sidx, n, ws),
+         splain.run_keep(skey, sidx, n, ws))
+    hold("sorted_runs_keep", soc.speckle_keep_sorted(labels, ws),
+         splain.speckle_keep_sorted(labels, ws))
+    hold("sorted_runs_keep", kept, plain.speckle_filter(dm, dm >= 0, ws, r, 3))
+    hold("sorted_runs_roots", soc.large_run_roots(skey, n2, L, ws),
+         splain.large_run_roots(skey, n2, L, ws))
+    hold("sweep_propagate", seeded, plain.speckle_keep_seeded(labels, ws))
+    # on converged labels the seeded keep is K5's keep of the valid pixels
+    hold("sweep_propagate", seeded, sc.speckle_keep(dm, labels, ws) >= 0)
+    torch.cuda.synchronize()
+    log(f"sort family {B}x{H}x{W} and the serpentine: max|err| vs plain: "
+        + ", ".join(f"{k} {v}" for k, v in err.items())
+        + f" (capped filter keeps {float(kept.float().mean()):.4f}, seeded "
+        f"{float(seeded.float().mean()):.4f})")
+    for k, v in err.items():
+        errs[k] = v
+    if any(err.values()):
+        raise AssertionError(f"a sort-family kernel differs from its plain "
+                             f"version: {err}")
+
+    key2 = key.reshape(B, -1)
+    times = {   # (kernel, plain, library) ms per call
+        "sweep_labels": (cuda_ms(lambda: sc.sweep_labels(dm, r, 3), 5),
+                         cuda_ms(lambda: plain.speckle_labels(dm, r, 3), 1),
+                         None),
+        "sweep_propagate": (
+            cuda_ms(lambda: sc.propagate_keep(labels, seeds[0]), 5),
+            cuda_ms(lambda: plain.propagate_keep(labels, seeds[0]), 1), None),
+        "radix_sort_keys": (
+            cuda_ms(lambda: soc.sort_keys(key), 5),
+            cuda_ms(lambda: splain.sort_keys(key), 5),
+            cuda_ms(lambda: torch.sort(key2, stable=True), 5)),
+        "radix_sort_pairs": (
+            cuda_ms(lambda: soc.sort_pairs(key, pos), 5),
+            cuda_ms(lambda: splain.sort_pairs(key, pos), 5),
+            cuda_ms(lambda: torch.sort(key2, stable=True), 5)),
+        "sorted_runs_sizes": (
+            cuda_ms(lambda: soc.run_sizes(skey, sidx, n), 5),
+            cuda_ms(lambda: splain.run_sizes(skey, sidx, n), 5), None),
+        "sorted_runs_keep": (
+            cuda_ms(lambda: soc.run_keep(skey, sidx, n, ws), 5),
+            cuda_ms(lambda: splain.run_keep(skey, sidx, n, ws), 5), None),
+        "sorted_runs_roots": (
+            cuda_ms(lambda: soc.large_run_roots(skey, n2, L, ws), 5),
+            cuda_ms(lambda: splain.large_run_roots(skey, n2, L, ws), 5),
+            None),
+    }
+    px, keys = B * H * W, B * n2
+    slots = splain.roots_slots(L, ws)
+    # the rounds these maps need: the timed labels call stops at 3, the
+    # propagation runs to convergence
+    full = sc.sweep_labels(dm, r)
+    rounds_lab = next(k for k in (1, 2, 3) if k == 3 or torch.equal(
+        sc.sweep_labels(dm, r, k), full))
+    full = sc.propagate_keep(labels, seeds[0])
+    rounds_prop = next(k for k in range(1, 1 << 20) if torch.equal(
+        sc.propagate_keep(labels, seeds[0], k), full))
+    log(f"sort family: rounds needed: labels {rounds_lab} (capped at 3), "
+        f"propagation {rounds_prop}")
+    # bytes: each input read once, each output written once. Operations:
+    # the sweep ~6 per pixel, sweep and round; the sort ~4 per key and
+    # pass; the run scans a binary search of log2(n2) steps each way, ~3
+    # operations a step
+    steps = n2.bit_length()
+    bounds = {
+        "sweep_labels": bound(8 * px, 6 * 4 * rounds_lab * px),
+        "sweep_propagate": bound(12 * px, 6 * 4 * rounds_prop * px),
+        "radix_sort_keys": bound(8 * keys, 16 * keys),
+        "radix_sort_pairs": bound(16 * keys, 16 * keys),
+        "sorted_runs_sizes": bound(8 * keys + 4 * B * n, 6 * steps * keys),
+        "sorted_runs_keep": bound(8 * keys + B * n, 6 * steps * keys),
+        "sorted_runs_roots": bound(4 * keys + 4 * B * R * slots, 4 * keys),
+    }
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        lib = (f", torch.sort(stable=True) {lib_ms:.3f} ms"
+               if lib_ms is not None else "")
+        log(f"sort family [{card}]: {name} at {B}x{H}x{W} ({B}x{n2} keys): "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{lib}, bound "
+            f"{bounds[name][0]:.4f} ms ({bounds[name][1]}) per call")
+    return launches, times, bounds
 
 
 def in_turns_ms(fns, reps=5):
@@ -622,8 +807,8 @@ def phase_shared_path(card, errs, frames, stacked):
     pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
     out, launches, peak, _ = drive(pipe, lefts, rights, [sc, wc])
     log(f"shared path launches: {launches}")
-    if (min(v for k, v in launches.items() if k not in ("cost_box", "wta_lr"))
-            < 1 or launches["cost_box"] or launches["wta_lr"]):
+    if ({k for k, v in launches.items() if v}
+            != FULL_PATH - {"cost_box", "wta_lr"} | set(PAIR_MODES)):
         raise AssertionError(f"the shared path's kernels did not run as "
                              f"expected: {launches}")
     vfrac, mae = check_output(out, gts, D, "shared path (bar valid > 0.95, "
@@ -773,7 +958,12 @@ def main():
     phase_matcher()
     frames = render_frames(*MAIN[:3])
     times1, bounds1 = phase_main_path(card, errs, frames)
-    launches, times2, bounds2, stacked = phase_full_path(card, errs, frames)
+    launches, times2, bounds2, stacked, maps = phase_full_path(card, errs,
+                                                               frames)
+    launches4, times4, bounds4 = phase_sort_family(card, errs, maps, 2, 200)
+    del maps
+    import torch
+    torch.cuda.empty_cache()
     profile_path(card, stacked[0], frames)
     launches3, times3, bounds3, pipe = phase_shared_path(card, errs, frames,
                                                          stacked)
@@ -782,10 +972,10 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})
-    times = {**times1, **times2, **times3}
-    bounds = {**bounds1, **bounds2, **bounds3}
+    launches.update({k: launches4[k] for k in SORT_FAMILY})
+    times = {**times1, **times2, **times3, **times4}
+    bounds = {**bounds1, **bounds2, **bounds3, **bounds4}
 
-    import torch
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": times[name][0],

@@ -13,7 +13,11 @@ convolution: cuDNN would compute it in TF32 and break the exactness.
 
 The speckle filter is the plain version of the CCL labels and keep kernels
 (csrc/speckle.cu): labels by the segmented-min sweeps of the TPU labels
-kernel, iterated to convergence, then a histogram of the labels.
+kernel, iterated to convergence or for a capped number of rounds, then a
+histogram of the labels. ``propagate_keep`` (the same rounds with max in
+place of min) and ``speckle_keep_seeded`` are the plain versions of the
+sweep kernel's propagate mode (csrc/sweep.cu) and of the TPU's seeded
+keep, which also runs the sort family of ``ops/sort.py``.
 
 The shared-cost pair (``sgbm_pair``) runs the right matcher on a volume in
 un-mirrored orientation: ``cost_volume_pair`` defines it as the mirrored
@@ -28,13 +32,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import sort
 from .sgbm_ref import SGBMParams
 
 __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "cost_volume", "directional_pass", "aggregate_paths", "wta",
            "lr_check", "wta_lr", "speckle_labels", "speckle_keep",
-           "speckle_filter", "sgbm", "compute_disparity_pair",
-           "cost_volume_pair", "sgbm_pair"]
+           "propagate_keep", "speckle_keep_seeded", "speckle_filter", "sgbm",
+           "compute_disparity_pair", "cost_volume_pair", "sgbm_pair"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -306,23 +311,45 @@ def _shift(x: torch.Tensor, k: int, dim: int, fill) -> torch.Tensor:
     return torch.cat([x.narrow(dim, -k, n + k), pad], dim=dim)
 
 
-def _segmented_min_sweep(lab: torch.Tensor, conn: torch.Tensor, dim: int,
-                         reverse: bool) -> torch.Tensor:
-    """Min of ``lab`` over each element's run up to it along ``dim``
-    (from below, or from above with ``reverse``); conn[i] links element i
-    to element i-1. Log-doubling, as the TPU labels kernel's sweep."""
+def _segmented_sweep(lab: torch.Tensor, conn: torch.Tensor, dim: int,
+                     reverse: bool, op=torch.minimum,
+                     fill: int = _BIGI) -> torch.Tensor:
+    """``op`` (min, or max with fill 0) of ``lab`` over each element's run
+    up to it along ``dim`` (from below, or from above with ``reverse``);
+    conn[i] links element i to element i-1. Log-doubling, as the TPU
+    labels kernel's sweep."""
     n = lab.shape[dim]
     c = _shift(conn, -1, dim, False) if reverse else conn
     val = lab
     k = 1
     while k < n:
         step = -k if reverse else k
-        v_n = _shift(val, step, dim, _BIGI)
+        v_n = _shift(val, step, dim, fill)
         c_n = _shift(c, step, dim, False)
-        val = torch.where(c, torch.minimum(val, v_n), val)
+        val = torch.where(c, op(val, v_n), val)
         c = c & c_n
         k *= 2
     return val
+
+
+def _sweep_rounds(val: torch.Tensor, c_h: torch.Tensor, c_v: torch.Tensor,
+                  max_iters: int, op=torch.minimum,
+                  fill: int = _BIGI) -> torch.Tensor:
+    """Rounds of segmented sweeps of ``op`` over linked runs: rows forward,
+    rows backward, columns forward, columns backward. They run until a
+    round changes nothing, or for at most ``max_iters`` rounds when that
+    is > 0. The round order matters for a capped result."""
+    rounds = 0
+    while True:
+        new = _segmented_sweep(val, c_h, -1, False, op, fill)
+        new = _segmented_sweep(new, c_h, -1, True, op, fill)
+        new = _segmented_sweep(new, c_v, -2, False, op, fill)
+        new = _segmented_sweep(new, c_v, -2, True, op, fill)
+        rounds += 1
+        changed = not torch.equal(new, val)
+        val = new
+        if not changed or 0 < max_iters <= rounds:
+            return val
 
 
 def speckle_labels(disp: torch.Tensor, max_diff: float, max_iters: int = 0,
@@ -335,7 +362,8 @@ def speckle_labels(disp: torch.Tensor, max_diff: float, max_iters: int = 0,
     Rounds of row sweeps (both directions) then column sweeps run until no
     label changes, or at most ``max_iters`` rounds when that is > 0 (capped
     labels can only over-split a component). The plain version of the
-    labels kernel, whose union-find has no capped mode."""
+    union-find labels kernel (converged) and of the sweep kernel's labels
+    mode (csrc/sweep.cu, capped or not)."""
     H, W = disp.shape[-2], disp.shape[-1]
     n = H * W
     if valid is None:
@@ -350,18 +378,48 @@ def speckle_labels(disp: torch.Tensor, max_diff: float, max_iters: int = 0,
             & ((disp[..., 1:, :] - disp[..., :-1, :]).abs() <= max_diff))
     c_h = torch.cat([torch.zeros_like(ok_h[..., :1]), ok_h], dim=-1)
     c_v = torch.cat([torch.zeros_like(ok_v[..., :1, :]), ok_v], dim=-2)
-    rounds = 0
-    while True:
-        new = _segmented_min_sweep(lab, c_h, -1, False)
-        new = _segmented_min_sweep(new, c_h, -1, True)
-        new = _segmented_min_sweep(new, c_v, -2, False)
-        new = _segmented_min_sweep(new, c_v, -2, True)
-        rounds += 1
-        changed = not torch.equal(new, lab)
-        lab = new
-        if not changed or 0 < max_iters <= rounds:
-            break
+    lab = _sweep_rounds(lab, c_h, c_v, max_iters)
     return torch.where(valid, lab, sent)
+
+
+def propagate_keep(labels: torch.Tensor, seed: torch.Tensor,
+                   max_iters: int = 0) -> torch.Tensor:
+    """(..., H, W) int32 labels and seeds -> int32: each seed's max spread
+    over the 4-connected runs of equal labels other than the sentinel H*W,
+    by the rounds of ``speckle_labels`` with max in place of min; until
+    nothing changes, or at most ``max_iters`` rounds when that is > 0. The
+    plain version of the TPU's ``_propagate_keep_kernel`` and of the sweep
+    kernel's propagate mode (csrc/sweep.cu)."""
+    H, W = labels.shape[-2], labels.shape[-1]
+    ok = labels != H * W
+    c_h = torch.cat([torch.zeros_like(ok[..., :1]),
+                     ok[..., 1:] & (labels[..., 1:] == labels[..., :-1])],
+                    dim=-1)
+    c_v = torch.cat([torch.zeros_like(ok[..., :1, :]),
+                     ok[..., 1:, :] & (labels[..., 1:, :]
+                                       == labels[..., :-1, :])], dim=-2)
+    return _sweep_rounds(seed, c_h, c_v, max_iters, torch.maximum, 0)
+
+
+def speckle_keep_seeded(labels: torch.Tensor, max_size: int,
+                        max_iters: int = 0, sorted_labels=sort.sorted_labels,
+                        large_run_roots=sort.large_run_roots,
+                        propagate=propagate_keep) -> torch.Tensor:
+    """(B, H, W) int32 labels -> bool, component size > max_size, False
+    for the sentinel: the TPU's seeded keep. The labels are sorted, the
+    values of the runs longer than max_size (the large components' roots,
+    for converged labels) seed their pixels, and ``propagate`` spreads the
+    seeds over each component. The three steps default to the plain
+    versions; ops/sgbm_cuda.py passes the kernels' wrappers."""
+    B, H, W = labels.shape
+    skey, n, n2, L, _ = sorted_labels(labels)
+    roots = large_run_roots(skey, n2, L, max_size).reshape(B, -1)
+    tgt = torch.where((roots >= 0) & (roots < n), roots,
+                      torch.full_like(roots, n2)).to(torch.int64)
+    seed = torch.zeros((B, n2 + 1), dtype=torch.int32, device=labels.device)
+    seed.scatter_(1, tgt, 1)
+    return propagate(labels, seed[:, :n].reshape(B, H, W).contiguous(),
+                     max_iters) != 0
 
 
 def _keep_mask(labels: torch.Tensor, max_size: int) -> torch.Tensor:

@@ -16,11 +16,19 @@ torch, then
 - K5 ``speckle_keep``   (csrc/speckle.cu): label histogram -> the
   disparity without the components of at most speckle_window_size pixels.
 
+Beside the matcher, the speckle functions of the JAX package that run
+rounds of segmented sweeps, on the sweep kernel (csrc/sweep.cu):
+``sweep_labels`` (its labels mode; ``speckle_labels`` with ``max_iters``
+> 0 runs it) and ``propagate_keep`` (its propagate mode), with the
+compositions ``speckle_keep_seeded`` and ``speckle_filter`` on top, which
+also use the sort kernels of ``ops/sort_cuda.py``.
+
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
 ``ops/sgbm.py``; a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches per wrapper and mode (``cost_box_pair`` and
-``wta_lr_mirror`` are the pair modes); nothing else touches it.
+``wta_lr_mirror`` are the pair modes, ``sweep_labels`` and
+``sweep_propagate`` the sweep kernel's two); nothing else touches it.
 """
 
 from __future__ import annotations
@@ -33,38 +41,22 @@ from .sgbm_ref import SGBMParams
 
 from ..utils import kernels
 from . import sgbm as plain
+from . import sort_cuda
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "cost_volume_pair", "sgm_pass", "aggregate", "wta_lr",
-           "speckle_labels", "speckle_keep", "sgbm_cuda", "sgbm_pair_cuda"]
+           "speckle_labels", "speckle_keep", "sweep_labels", "propagate_keep",
+           "speckle_keep_seeded", "speckle_filter", "sgbm_cuda",
+           "sgbm_pair_cuda"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
-            "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0}
+            "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
+            "sweep_labels": 0, "sweep_propagate": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on anything else
-    or on a mix."""
-    kinds = {t.device.type for t in tensors}
-    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-        raise ValueError(f"tensors must all be on the CPU or all on CUDA, "
-                         f"got {sorted(kinds)}")
-    return kinds == {"cuda"}
-
-
-def _require(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str):
-    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {ndim}-d {dtype} tensor, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def _check_params(params: SGBMParams) -> None:
@@ -79,8 +71,8 @@ def _check_params(params: SGBMParams) -> None:
 def _cost_box(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams,
               pair: bool) -> torch.Tensor:
     """Launch K1 on CUDA images, in pair mode or not."""
-    _require(lt, torch.float32, 3, "lt")
-    _require(rt, torch.float32, 3, "rt")
+    kernels.require(lt, torch.float32, 3, "lt")
+    kernels.require(rt, torch.float32, 3, "rt")
     if lt.shape != rt.shape:
         raise ValueError(f"shape mismatch {tuple(lt.shape)} {tuple(rt.shape)}")
     B, H, W = lt.shape
@@ -90,7 +82,7 @@ def _cost_box(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams,
     rc = kernels.load().sdr_cost_box(lt.data_ptr(), rt.data_ptr(),
                                      out.data_ptr(), B, H, W, D,
                                      params.min_disparity, params.block_size,
-                                     int(pair), _stream())
+                                     int(pair), kernels.stream())
     name = "cost_box_pair" if pair else "cost_box"
     kernels.check(rc, name)
     LAUNCHES[name] += 1
@@ -100,7 +92,7 @@ def _cost_box(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams,
 def cost_volume(lt: torch.Tensor, rt: torch.Tensor,
                 params: SGBMParams) -> torch.Tensor:
     """(B, H, W) Sobel-clipped images -> (B, H, W, D) int16 boxed BT cost."""
-    if not _on_cuda(lt, rt):
+    if not kernels.on_cuda(lt, rt):
         return plain.cost_volume(lt, rt, params).to(torch.int16)
     return _cost_box(lt, rt, params, pair=False)
 
@@ -111,7 +103,7 @@ def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor,
     the left matcher's C_L in frames [0, B) and the right matcher's C_R, in
     un-mirrored orientation, in frames [B, 2B) (``plain.cost_volume_pair``),
     from one cost build."""
-    if not _on_cuda(lt, rt):
+    if not kernels.on_cuda(lt, rt):
         return torch.cat(plain.cost_volume_pair(lt, rt, params)).to(
             torch.int16)
     return _cost_box(lt, rt, params, pair=True)
@@ -121,7 +113,7 @@ def sgm_pass(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int,
              P1: int, P2: int, accumulate: bool) -> None:
     """One path direction over C (B, H, W, D) int16, written into the int32
     S in place: S = L, or S += L with ``accumulate``."""
-    if not _on_cuda(C, S):
+    if not kernels.on_cuda(C, S):
         L = plain.directional_pass(C.to(torch.float32), dy, dx,
                                    float(P1), float(P2)).to(torch.int32)
         if accumulate:
@@ -129,14 +121,14 @@ def sgm_pass(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int,
         else:
             S.copy_(L)
         return
-    _require(C, torch.int16, 4, "C")
-    _require(S, torch.int32, 4, "S")
+    kernels.require(C, torch.int16, 4, "C")
+    kernels.require(S, torch.int32, 4, "S")
     if C.shape != S.shape:
         raise ValueError(f"shape mismatch {tuple(C.shape)} {tuple(S.shape)}")
     B, H, W, D = C.shape
     rc = kernels.load().sdr_sgm_pass(C.data_ptr(), S.data_ptr(), B, H, W, D,
                                      dy, dx, int(P1), int(P2),
-                                     int(accumulate), _stream())
+                                     int(accumulate), kernels.stream())
     kernels.check(rc, "sgm_pass")
     LAUNCHES["sgm_pass"] += 1
 
@@ -161,22 +153,91 @@ def wta_lr(S: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
     m = B if mirror_from is None else mirror_from
     if not 0 <= m <= B:
         raise ValueError(f"mirror_from must be in [0, {B}], got {m}")
-    if not _on_cuda(S):
+    if not kernels.on_cuda(S):
         S = S.to(torch.float32)
         return torch.cat([plain.wta_lr(S[:m], params, apply_lr),
                           plain.wta_lr(S[m:], params, apply_lr,
                                        mirror_lr=True)])
-    _require(S, torch.int32, 4, "S")
+    kernels.require(S, torch.int32, 4, "S")
     _, H, W, D = S.shape
     out = torch.empty((B, H, W), dtype=torch.float32, device=S.device)
     rc = kernels.load().sdr_wta_lr(
         S.data_ptr(), out.data_ptr(), B, H, W, D, params.min_disparity,
         params.uniqueness_ratio, int(params.quantize_16),
-        params.disp12_max_diff, int(apply_lr), m, _stream())
+        params.disp12_max_diff, int(apply_lr), m, kernels.stream())
     name = "wta_lr" if m == B else "wta_lr_mirror"
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def _sweep(a: torch.Tensor, seed: Optional[torch.Tensor], max_diff: float,
+           max_iters: int, name: str) -> torch.Tensor:
+    """Launch the sweep kernel (csrc/sweep.cu) on CUDA (B, H, W) inputs:
+    labels mode on a float32 disparity ``a`` (``seed`` None), propagate
+    mode on int32 labels ``a`` and their int32 ``seed``."""
+    B, H, W = a.shape
+    if max_iters < 0:
+        raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    out = torch.empty((B, H, W), dtype=torch.int32, device=a.device)
+    flags = torch.empty((2, B), dtype=torch.int32, device=a.device)
+    rc = kernels.load().sdr_sweep(
+        a.data_ptr(), None if seed is None else seed.data_ptr(),
+        out.data_ptr(), flags.data_ptr(), B, H, W, float(max_diff),
+        int(max_iters), kernels.stream())
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def sweep_labels(disp: torch.Tensor, max_diff: float,
+                 max_iters: int = 0) -> torch.Tensor:
+    """``speckle_labels`` by rounds of row and column sweeps (the TPU
+    labels kernel's rounds, in its order), on the sweep kernel: to
+    convergence, or for at most ``max_iters`` rounds when that is > 0."""
+    if not kernels.on_cuda(disp):
+        return plain.speckle_labels(disp, max_diff, max_iters)
+    kernels.require(disp, torch.float32, 3, "disp")
+    return _sweep(disp, None, max_diff, max_iters, "sweep_labels")
+
+
+def propagate_keep(labels: torch.Tensor, seed: torch.Tensor,
+                   max_iters: int = 0) -> torch.Tensor:
+    """(B, H, W) int32 labels and seeds -> int32, each seed's max spread
+    over the 4-connected runs of equal labels other than H*W
+    (``plain.propagate_keep``), on the sweep kernel's propagate mode."""
+    if not kernels.on_cuda(labels, seed):
+        return plain.propagate_keep(labels, seed, max_iters)
+    kernels.require(labels, torch.int32, 3, "labels")
+    kernels.require(seed, torch.int32, 3, "seed")
+    if labels.shape != seed.shape:
+        raise ValueError(f"shape mismatch {tuple(labels.shape)} "
+                         f"{tuple(seed.shape)}")
+    return _sweep(labels, seed, 0.0, max_iters, "sweep_propagate")
+
+
+def speckle_keep_seeded(labels: torch.Tensor, max_size: int,
+                        max_iters: int = 0) -> torch.Tensor:
+    """(B, H, W) int32 labels -> bool, component size > max_size, False for
+    the sentinel H*W (the TPU's ``speckle_keep_seeded``): the key sort and
+    the large-run roots of ``ops/sort_cuda.py``, a seed scatter, then
+    ``propagate_keep``."""
+    return plain.speckle_keep_seeded(
+        labels, max_size, max_iters, sorted_labels=sort_cuda.sorted_labels,
+        large_run_roots=sort_cuda.large_run_roots, propagate=propagate_keep)
+
+
+def speckle_filter(disp: torch.Tensor, max_size: int, max_diff: float,
+                   max_iters: int = 0) -> torch.Tensor:
+    """(B, H, W) disparity -> bool, valid (disp >= 0) and in a component of
+    more than ``max_size`` pixels: the TPU's ``speckle_filter_pallas``.
+    Converged (``max_iters`` 0), K4's labels and K5's keep, as the matcher
+    runs them; capped, the sweep kernel's labels and the sort-based keep
+    (``sort_cuda.speckle_keep_sorted``), as the JAX package routes it."""
+    labels = speckle_labels(disp, max_diff, max_iters)
+    if max_iters == 0:
+        return speckle_keep(disp, labels, max_size) >= 0
+    return (disp >= 0) & sort_cuda.speckle_keep_sorted(labels, max_size)
 
 
 def speckle_labels(disp: torch.Tensor, max_diff: float,
@@ -184,19 +245,19 @@ def speckle_labels(disp: torch.Tensor, max_diff: float,
     """(B, H, W) float32 disparity (invalid < 0) -> (B, H, W) int32
     component labels: the smallest flat index of each 4-connected
     component of valid pixels whose disparities differ by at most
-    ``max_diff``, H*W for an invalid pixel. The kernel's union-find always
-    runs to the end, so on CUDA only ``max_iters == 0`` is accepted."""
-    if not _on_cuda(disp):
+    ``max_diff``, H*W for an invalid pixel. Converged (``max_iters`` 0)
+    on K4's union-find; capped at ``max_iters`` rounds on the sweep
+    kernel (``sweep_labels``)."""
+    if not kernels.on_cuda(disp):
         return plain.speckle_labels(disp, max_diff, max_iters)
     if max_iters != 0:
-        raise ValueError("the labels kernel has no capped mode: "
-                         f"max_iters must be 0, got {max_iters}")
-    _require(disp, torch.float32, 3, "disp")
+        return sweep_labels(disp, max_diff, max_iters)
+    kernels.require(disp, torch.float32, 3, "disp")
     B, H, W = disp.shape
     out = torch.empty((B, H, W), dtype=torch.int32, device=disp.device)
     rc = kernels.load().sdr_speckle_labels(disp.data_ptr(), out.data_ptr(),
                                            B, H, W, float(max_diff),
-                                           _stream())
+                                           kernels.stream())
     kernels.check(rc, "speckle_labels")
     LAUNCHES["speckle_labels"] += 1
     return out
@@ -206,10 +267,10 @@ def speckle_keep(disp: torch.Tensor, labels: torch.Tensor,
                  max_size: int) -> torch.Tensor:
     """(B, H, W) disparity and its labels -> the disparity where the
     pixel's component has more than ``max_size`` pixels, else -1.0."""
-    if not _on_cuda(disp, labels):
+    if not kernels.on_cuda(disp, labels):
         return plain.speckle_keep(disp, labels, max_size)
-    _require(disp, torch.float32, 3, "disp")
-    _require(labels, torch.int32, 3, "labels")
+    kernels.require(disp, torch.float32, 3, "disp")
+    kernels.require(labels, torch.int32, 3, "labels")
     if disp.shape != labels.shape:
         raise ValueError(f"shape mismatch {tuple(disp.shape)} "
                          f"{tuple(labels.shape)}")
@@ -218,7 +279,8 @@ def speckle_keep(disp: torch.Tensor, labels: torch.Tensor,
     out = torch.empty_like(disp)
     rc = kernels.load().sdr_speckle_keep(disp.data_ptr(), labels.data_ptr(),
                                          sizes.data_ptr(), out.data_ptr(),
-                                         B, H, W, int(max_size), _stream())
+                                         B, H, W, int(max_size),
+                                         kernels.stream())
     kernels.check(rc, "speckle_keep")
     LAUNCHES["speckle_keep"] += 1
     return out

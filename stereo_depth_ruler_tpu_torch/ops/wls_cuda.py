@@ -23,7 +23,6 @@ import torch
 
 from ..utils import kernels
 from . import wls as plain
-from .sgbm_cuda import _on_cuda, _require, _stream
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "shift_gather_conf",
            "fgs_pass", "fgs_filter_cuda", "wls_disparity_filter_cuda"]
@@ -41,11 +40,11 @@ def shift_gather_conf(disp_left: torch.Tensor, disp_right: torch.Tensor,
                       ) -> torch.Tensor:
     """(B, H, W) left/right disparities -> (B, 2, H, W) float32 right-hand
     sides (conf·max(dl, 0), conf); see ``ops/wls.py:shift_gather_conf``."""
-    if not _on_cuda(disp_left, disp_right):
+    if not kernels.on_cuda(disp_left, disp_right):
         return plain.shift_gather_conf(disp_left, disp_right, max_disp,
                                        lrc_thresh)
-    _require(disp_left, torch.float32, 3, "disp_left")
-    _require(disp_right, torch.float32, 3, "disp_right")
+    kernels.require(disp_left, torch.float32, 3, "disp_left")
+    kernels.require(disp_right, torch.float32, 3, "disp_right")
     if disp_left.shape != disp_right.shape:
         raise ValueError(f"shape mismatch {tuple(disp_left.shape)} "
                          f"{tuple(disp_right.shape)}")
@@ -54,7 +53,8 @@ def shift_gather_conf(disp_left: torch.Tensor, disp_right: torch.Tensor,
                       device=disp_left.device)
     rc = kernels.load().sdr_shift_gather_conf(
         disp_left.data_ptr(), disp_right.data_ptr(), rhs.data_ptr(), B, H, W,
-        int(max_disp), float(lrc_thresh), float(plain.GATHER_FILL), _stream())
+        int(max_disp), float(lrc_thresh), float(plain.GATHER_FILL),
+        kernels.stream())
     kernels.check(rc, "shift_gather")
     LAUNCHES["shift_gather"] += 1
     return rhs
@@ -64,10 +64,10 @@ def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
              axis: int) -> torch.Tensor:
     """One FGS sweep of the (B, 2, H, W) right-hand sides under the
     (B, H, W) guide, along rows (axis -1) or columns (axis -2)."""
-    if not _on_cuda(u, guide):
+    if not kernels.on_cuda(u, guide):
         return plain.fgs_pass(u, guide, lam, sigma, axis)
-    _require(u, torch.float32, 4, "u")
-    _require(guide, torch.float32, 3, "guide")
+    kernels.require(u, torch.float32, 4, "u")
+    kernels.require(guide, torch.float32, 3, "guide")
     B, R, H, W = u.shape
     if R != 2 or guide.shape != (B, H, W):
         raise ValueError(f"need (B, 2, H, W) right-hand sides and a (B, H, W) "
@@ -78,7 +78,7 @@ def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
     rc = kernels.load().sdr_fgs_pass(guide.data_ptr(), u.data_ptr(),
                                      out.data_ptr(), B, H, W,
                                      int(axis == -1), float(lam),
-                                     float(sigma), _stream())
+                                     float(sigma), kernels.stream())
     kernels.check(rc, "fgs_pass")
     LAUNCHES["fgs_pass"] += 1
     return out

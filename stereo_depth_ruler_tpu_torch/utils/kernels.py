@@ -11,7 +11,8 @@ missing ``nvcc`` or a failed build raises.
 
 Pointers and the stream are passed as ``c_void_p`` (a plain Python int would
 be cut to 32 bits); every entry returns ``cudaGetLastError()``, and
-``check`` raises on a non-zero code.
+``check`` raises on a non-zero code. ``on_cuda``, ``require`` and
+``stream`` are the wrappers' common dispatch and argument checks.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
+import torch
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
+           "on_cuda", "require", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "ops" / "csrc"
@@ -53,6 +57,16 @@ _SIGNATURES = {
     "sdr_shift_gather_conf": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # guide, u, out, B, H, W, rows, lam, sigma, stream
     "sdr_fgs_pass": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # disp or labels, seed (null: labels mode), out, flags, B, H, W,
+    # max_diff, max_iters, stream
+    "sdr_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # key_in, val_in, key_out, val_out, key_tmp, val_tmp, hist, B, N, stream
+    # (val pointers null: keys only)
+    "sdr_radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # N -> int32 histogram entries per frame that sdr_radix_sort needs
+    "sdr_radix_hist_size": [_I],
+    # skey, sidx, out, B, N, n_out, mode, max_size, L, slots, stream
+    "sdr_sorted_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -129,3 +143,25 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = load().sdr_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on anything else
+    or on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA, "
+                         f"got {sorted(kinds)}")
+    return kinds == {"cuda"}
+
+
+def require(t: torch.Tensor, dtype: torch.dtype, ndim: int, name: str):
+    """Raise unless t is a contiguous ndim-d tensor of dtype."""
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {ndim}-d {dtype} tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def stream() -> int:
+    """The current CUDA stream's handle, for a kernel entry."""
+    return torch.cuda.current_stream().cuda_stream

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions on the card, bitwise (the
-FGS pass too: its plain version divides as IEEE division does).
+FGS pass too: its plain version divides as IEEE division does). The sort
+family's plain sorts are torch.sort(stable=True), which the radix sort
+matches in values as well as keys, being stable too.
 
 Marked ``cuda``: they need a CUDA card and nvcc, and skip without them.
 The file needs nothing from tests/conftest.py (which imports JAX), so on a
@@ -18,6 +20,8 @@ from stereo_depth_ruler_tpu_torch import StereoRig
 from stereo_depth_ruler_tpu_torch import SGBMParams
 from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
 from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+from stereo_depth_ruler_tpu_torch.ops import sort as sortp
+from stereo_depth_ruler_tpu_torch.ops import sort_cuda
 from stereo_depth_ruler_tpu_torch.ops import wls as wplain
 from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
 
@@ -161,8 +165,104 @@ def test_speckle_kernels_match_plain(cuda, case):
         assert torch.equal(kept, plain.speckle_keep(disp, labels, max_size))
     if case == "serpentine":
         assert torch.unique(labels[0][disp[0] >= 0]).numel() == 1
-    with pytest.raises(ValueError, match="max_iters"):
-        sc.speckle_labels(disp, 1.0, max_iters=3)
+    capped = sc.speckle_labels(disp, 1.0, max_iters=3)
+    torch.cuda.synchronize()
+    assert torch.equal(capped, plain.speckle_labels(disp, 1.0, 3))
+
+
+def speckle_map(case):
+    if case == "noisy":
+        d = noisy(96, 160, seed=5)
+    elif case == "serpentine":
+        s = serpentine(256, 384)
+        d = np.stack([s, s[::-1, ::-1]])
+    else:
+        d = np.full((2, 40, 64), -1.0, np.float32)
+    return torch.tensor(np.ascontiguousarray(d), device="cuda")
+
+
+@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid"])
+def test_sweep_kernel_matches_plain(cuda, case):
+    """The sweep kernel's labels mode round for round (capped at 1-3) and
+    converged (equal to K4's union-find), its propagate mode capped and
+    converged, and the seeded keep on top, all bitwise."""
+    disp = speckle_map(case)
+    for max_iters in (1, 2, 3, 0):
+        got = sc.sweep_labels(disp, 1.0, max_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.speckle_labels(disp, 1.0, max_iters))
+    labels = sc.speckle_labels(disp, 1.0)
+    assert torch.equal(got, labels)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    seed = (torch.rand(labels.shape, generator=g, device=cuda)
+            < 0.01).to(torch.int32)
+    for max_iters in (1, 2, 0):
+        got = sc.propagate_keep(labels, seed, max_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.propagate_keep(labels, seed, max_iters))
+    for max_size in (4, 40):
+        keep = sc.speckle_keep_seeded(labels, max_size)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, plain.speckle_keep_seeded(labels, max_size))
+        assert torch.equal(keep, sc.speckle_keep(disp, labels, max_size) >= 0)
+
+
+@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid"])
+def test_sort_kernels_match_plain(cuda, case):
+    """The radix sort (keys, pairs) and the sorted-run kernel (sizes, keep,
+    roots) on the packed labels of a map, and the functions built on them,
+    bitwise against their plain versions."""
+    disp = speckle_map(case)
+    labels = sc.speckle_labels(disp, 1.0)
+    key, n, n2, L, R = sortp.pack_batched(labels)
+    skey = sort_cuda.sort_keys(key)
+    torch.cuda.synchronize()
+    assert torch.equal(skey, sortp.sort_keys(key))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    val = torch.randint(0, 2 ** 31 - 1, key.shape, generator=g, device=cuda,
+                        dtype=torch.int32)
+    for v in (val, sortp.positions(key)):
+        got = sort_cuda.sort_pairs(key, v)
+        torch.cuda.synchronize()
+        want = sortp.sort_pairs(key, v)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sidx = got[1]
+    assert torch.equal(sort_cuda.run_sizes(skey), sortp.run_sizes(skey))
+    assert torch.equal(sort_cuda.run_sizes(skey, sidx, n),
+                       sortp.run_sizes(skey, sidx, n))
+    for max_size in (1, 4, 40):
+        assert torch.equal(sort_cuda.run_keep(skey, sidx, n, max_size),
+                           sortp.run_keep(skey, sidx, n, max_size))
+        assert torch.equal(sort_cuda.speckle_keep_sorted(labels, max_size),
+                           sortp.speckle_keep_sorted(labels, max_size))
+    for max_size in (3, 8, 50):
+        assert torch.equal(sort_cuda.large_run_roots(skey, n2, L, max_size),
+                           sortp.large_run_roots(skey, n2, L, max_size))
+    assert torch.equal(sort_cuda.equal_value_counts(labels),
+                       sortp.equal_value_counts(labels))
+    for max_iters in (1, 3):
+        got = sc.speckle_filter(disp, 40, 1.0, max_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.speckle_filter(disp, disp >= 0, 40, 1.0,
+                                                     max_iters))
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 777), (2, 2048 * 3 + 5),
+                                 (2, 1 << 20)])
+def test_radix_sort_any_length(cuda, B, N):
+    """Keys over the whole [0, 2**31) range and keys with many ties, at
+    lengths that are not a multiple of the kernel's tile."""
+    g = torch.Generator(device="cuda").manual_seed(N)
+    for hi in (2 ** 31 - 1, 50):
+        key = torch.randint(0, hi, (B, N), generator=g, device=cuda,
+                            dtype=torch.int32)
+        val = torch.arange(B * N, device=cuda, dtype=torch.int32).reshape(B, N)
+        skey, sval = sort_cuda.sort_pairs(key, val)
+        torch.cuda.synchronize()
+        want, idx = torch.sort(key, dim=1, stable=True)
+        assert torch.equal(skey, want)
+        assert torch.equal(sval, torch.gather(val, 1, idx))
+        assert torch.equal(sort_cuda.sort_keys(key), want)
 
 
 def banded(H, W, seed):

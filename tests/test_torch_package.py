@@ -27,6 +27,8 @@ MODULES = ["stereo_depth_ruler_tpu_torch",
            "stereo_depth_ruler_tpu_torch.ops.sgbm",
            "stereo_depth_ruler_tpu_torch.ops.sgbm_ref",
            "stereo_depth_ruler_tpu_torch.ops.sgbm_cuda",
+           "stereo_depth_ruler_tpu_torch.ops.sort",
+           "stereo_depth_ruler_tpu_torch.ops.sort_cuda",
            "stereo_depth_ruler_tpu_torch.ops.wls",
            "stereo_depth_ruler_tpu_torch.ops.wls_cuda",
            "stereo_depth_ruler_tpu_torch.ops.remap",
@@ -131,7 +133,8 @@ def test_unported_configurations_raise(cfg):
 def test_kernel_sources_are_packaged():
     from stereo_depth_ruler_tpu_torch.utils import kernels
     names = sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu"))
-    assert names == ["cost_box.cu", "fgs_pass.cu", "sgm_pass.cu",
-                     "shift_gather.cu", "speckle.cu", "wta_lr.cu"]
+    assert names == ["cost_box.cu", "fgs_pass.cu", "radix_sort.cu",
+                     "sgm_pass.cu", "shift_gather.cu", "sorted_runs.cu",
+                     "speckle.cu", "sweep.cu", "wta_lr.cu"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert "--use_fast_math" not in kernels.NVCC_FLAGS

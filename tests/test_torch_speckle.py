@@ -130,6 +130,30 @@ def test_keep_matches_jnp_and_pallas(case, max_size):
         np.testing.assert_array_equal(keep_p, keep_j)
 
 
+@pytest.mark.parametrize("case,max_size", [("natural", 40), ("noisy", 8),
+                                           ("serpentine", 400)])
+def test_capped_filter_matches_pallas(case, max_size):
+    """The capped speckle_filter (labels after 2 rounds, then the
+    sort-based keep; on the CPU the plain versions) against
+    speckle_filter_pallas(..., max_iters=2), bitwise. The serpentine is
+    split by the cap into pieces of at most 400 pixels."""
+    disp = CASES[case]()
+    md = MAX_DIFF[case]
+    t = torch.tensor(disp)
+    got = tc.speckle_filter(t, max_size, md, max_iters=2)
+    assert got.dtype == torch.bool
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.vmap(lambda d: sp.speckle_filter_pallas(
+            d, max_size, md, max_iters=2))(jnp.asarray(disp)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, ts.speckle_filter(t, t >= 0, max_size, md, 2))
+    full = tc.speckle_filter(t, max_size, md)
+    assert torch.equal(full, ts.speckle_filter(t, t >= 0, max_size, md))
+    assert not (got & ~full).any()
+    if case == "serpentine":
+        assert not torch.equal(got, full)
+
+
 def test_sgbm_with_speckle_vs_jnp_and_oracle(tiny_pair):
     left, right, _ = tiny_pair
     want = js.sgbm(jnp.float32(left), jnp.float32(right),
