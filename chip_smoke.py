@@ -10,7 +10,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    source, all started together;
 3. kernels: K1 cost, K2's 8 passes and K3 (LR on and off) against their
    plain PyTorch versions, bitwise, at 32x48x16, 96x160x48 and
-   720x1280x128; then K4 speckle labels, K5 speckle keep, K7 shift
+   720x1280x128; at the same shapes the staged chain's kernels (the fused
+   cost + down pass, K2 on an int16 S, the three-input WTA/LR) with 8, 4
+   and 2 paths and min_disparity 0 and 3, and the three transposes on
+   int16, int32 and bfloat16 volumes; then K4 speckle labels, K5 speckle keep, K7 shift
    gather and K6 FGS pass (all bitwise) at 32x48 and 96x160, and K4/K5
    on a 720x1280 serpentine, one component that a CCL stopping early
    splits;
@@ -22,7 +25,17 @@ Phases, each of which raises (and exits non-zero) on failure:
    speckle off), checked against the rendered ground truth, with launch
    counts, frames/s and peak memory; then K1-K3 on the main path's own
    inputs (8x720x1280x128) against their plain versions, bitwise, and
-   timed;
+   timed; then the staged chain on the same rectified frames: a counted
+   run of sgbm_staged_cuda, which must launch the fused cost + down kernel
+   once, K2 on an int16 S five times and the three-input WTA/LR once, and
+   none of K1-K3; its map equal to sgbm_cuda's and to the slice-1 path's;
+   cost_down's C equal to K1's and its sum to three K2 passes; the three
+   kernels against their plain versions on the full batch, timed, the two
+   chains timed in turns, and their peak memory; then a counted run of
+   the stage profiler (tools/profile_stages_torch.py), which launches the
+   three volume transposes, and the transposes on one frame's volume
+   ((128, 720, 1280), int16, int32 and bfloat16) against
+   permute().contiguous(), bitwise, there and back, and timed;
 6. full main path: the same frames through the reference's configuration
    (speckle 200/2, right matcher on the stacked 16 frames, WLS filter), at
    the WLS accuracy bar (valid > 0.95, MAE < 0.7 px outside the left 128
@@ -107,6 +120,19 @@ KERNELS = {
     "sorted_runs_roots": (
         "stereo_depth_ruler_tpu_torch/ops/csrc/sorted_runs.cu",
         "stereo_depth_ruler_tpu/ops/sort_tpu.py:510"),
+    "cost_down": ("stereo_depth_ruler_tpu_torch/ops/csrc/cost_down.cu",
+                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:276"),
+    "sgm_pass_i16": ("stereo_depth_ruler_tpu_torch/ops/csrc/sgm_pass.cu",
+                     "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
+    "wta_lr3": ("stereo_depth_ruler_tpu_torch/ops/csrc/wta_lr.cu",
+                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1445"),
+    "transpose_vol": ("stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
+                      "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:469"),
+    "transpose_leading": (
+        "stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
+        "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:481"),
+    "transpose_dhw": ("stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
+                      "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:511"),
 }
 # the pair modes, launched only by the shared path
 PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
@@ -117,8 +143,10 @@ FULL_PATH = {"cost_box", "sgm_pass", "wta_lr", "speckle_labels",
 SORT_FAMILY = ("sweep_labels", "sweep_propagate", "radix_sort_keys",
                "radix_sort_pairs", "sorted_runs_sizes", "sorted_runs_keep",
                "sorted_runs_roots")
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# the staged chain's kernels and their launches per sgbm_staged_cuda call
+# with 8 paths, and the transposes, launched by the stage profiler
+STAGED_CHAIN = {"cost_down": 1, "sgm_pass_i16": 5, "wta_lr3": 1}
+TRANSPOSES = ("transpose_vol", "transpose_leading", "transpose_dhw")
 DEVICE = "cuda"
 # (H, W, D) of the K1-K3 checks; the serpentine's (H, W); the main path's
 # batch, H, W and D (the JAX package's headline widths)
@@ -134,16 +162,8 @@ def log(*a):
 def cuda_ms(fn, reps):
     """Mean device milliseconds of fn() over reps launches (after one
     warm-up call), timed with CUDA events."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from stereo_depth_ruler_tpu_torch.utils.profiling import stage_time
+    return stage_time(fn, reps)
 
 
 def max_abs_err(a, b):
@@ -157,7 +177,9 @@ def max_abs_err(a, b):
 
 def bound(nbytes, nops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
+    operations over the float32 rate (the H100's, utils/profiling.py)."""
+    from stereo_depth_ruler_tpu_torch.utils.profiling import (
+        FP32_OPS_PER_S, HBM_BYTES_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -200,6 +222,15 @@ def phase_build():
                     ptxas)
     log("ptxas: K1 at block 5: " + ", ".join(f"{name}_kernel {n} registers"
                                               for name, n in k1))
+    # the matcher kernels at 128 disparities (4 per lane): K2 and K3 as the
+    # three paths run them, and the staged chain's beside them
+    d128 = re.findall(
+        r"entry function '\w*?\d+(sgm_pass_kernel|sgm_pass_i16_kernel|"
+        r"wta_lr_kernel|wta_lr3_kernel|cost_down_kernel)ILi4E(?:Lb([01])E)?"
+        r"\w*'[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers", ptxas)
+    log("ptxas: at 4 disparities per lane: " + ", ".join(
+        f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
+        for name, acc, n in d128))
 
 
 def _pair(H, W, shift, seed):
@@ -250,6 +281,107 @@ def check_kernels(lt, rt, params, errs):
         raise AssertionError(f"a kernel differs from its plain version: "
                              f"{err}")
     return C, S
+
+
+def check_staged_kernels(lt, rt, params, errs, tag=""):
+    """The staged chain's kernels on the (B, H, W) Sobel images lt, rt: the
+    fused cost + down pass, K2 on an int16 S (the horizontal and the
+    up-going sums) and the three-input WTA/LR (LR on and off), each held
+    against its plain version on the same input, frame by frame; with 4 or
+    8 paths also wta_lr3 against K3 on the int32 sum of all paths. Raises
+    on any difference; returns (C, S_down, S_up, S_h)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    P1, P2 = float(params.P1), float(params.P2)
+    sums = {"S_h": [(0, 1), (0, -1)],
+            "S_up": plain.up_dirs(params.num_paths)}
+    C, S_down = sc.cost_down(lt, rt, params)
+    torch.cuda.synchronize()
+    S = {k: sc.aggregate_i16(C, params, dirs) for k, dirs in sums.items()}
+    torch.cuda.synchronize()
+    disp = {}
+    for apply_lr in (True, False):
+        disp[apply_lr] = sc.wta_lr3(S_down, S["S_up"], S["S_h"], params,
+                                    apply_lr)
+        torch.cuda.synchronize()
+    err = dict.fromkeys(STAGED_CHAIN, 0.0)
+    for b in range(lt.shape[0]):
+        C_p, Sd_p = plain.cost_down(lt[b], rt[b], params)
+        err["cost_down"] = max(err["cost_down"], max_abs_err(C[b], C_p),
+                               max_abs_err(S_down[b], Sd_p))
+        del Sd_p
+        for k, dirs in sums.items():
+            S_p = sum(plain.directional_pass(C_p, dy, dx, P1, P2)
+                      for dy, dx in dirs)
+            err["sgm_pass_i16"] = max(err["sgm_pass_i16"],
+                                      max_abs_err(S[k][b], S_p))
+            del S_p
+        del C_p
+        for apply_lr in (True, False):
+            err["wta_lr3"] = max(err["wta_lr3"], max_abs_err(
+                disp[apply_lr][b],
+                plain.wta_lr3(S_down[b], S["S_up"][b], S["S_h"][b], params,
+                              apply_lr)))
+    if params.num_paths >= 4:
+        S32 = sc.aggregate(C, params)
+        for apply_lr in (True, False):
+            err["wta_lr3"] = max(err["wta_lr3"], max_abs_err(
+                disp[apply_lr], sc.wta_lr(S32, params, apply_lr)))
+        del S32
+    B, H, W, D = C.shape
+    log(f"staged kernels {tag}{B}x{H}x{W}x{D}, {params.num_paths} paths, "
+        f"min_disparity {params.min_disparity}: max|err| vs plain: "
+        + ", ".join(f"{k} {v}" for k, v in err.items())
+        + f" (valid {float((disp[True] >= 0).float().mean()):.3f})")
+    for k, v in err.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    if any(err.values()):
+        raise AssertionError(f"a staged-chain kernel differs from its plain "
+                             f"version: {err}")
+    return C, S_down, S["S_up"], S["S_h"]
+
+
+def check_transposes(vol, errs, tag):
+    """The three transposes on the int16 volume ``vol`` (3-d), on the same
+    bits as bfloat16, and on its values widened to int32, against
+    permute().contiguous(): bitwise (compared as integers), and there and
+    back. Returns the int16 results (vol, leading, dhw order)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    fns = {"transpose_vol": (sc.transpose_vol, plain.transpose_vol, 2),
+           "transpose_leading": (sc.transpose_leading,
+                                 plain.transpose_leading, 2),
+           "transpose_dhw": (sc.transpose_dhw_to_wdh,
+                             plain.transpose_dhw_to_wdh, 3)}
+    err = dict.fromkeys(fns, 0.0)
+    keep = []
+    for x in (vol, vol.view(torch.bfloat16), vol.to(torch.int32)):
+        bits = torch.int32 if x.element_size() == 4 else torch.int16
+        for name, (fn, fn_p, order) in fns.items():
+            got = fn(x)
+            torch.cuda.synchronize()
+            if got.dtype != x.dtype:
+                raise AssertionError(f"{name} changed {x.dtype} to "
+                                     f"{got.dtype}")
+            err[name] = max(err[name], max_abs_err(got.view(bits),
+                                                   fn_p(x).view(bits)))
+            if x is vol:
+                keep.append(got)
+            for _ in range(order - 1):     # back to the input's layout
+                got = fn(got)
+            err[name] = max(err[name], max_abs_err(got.view(bits),
+                                                   x.view(bits)))
+            del got
+    log(f"transposes {tag} {tuple(vol.shape)} int16, bfloat16, int32: "
+        "max|err| vs permute().contiguous() and there and back: "
+        + ", ".join(f"{k} {v}" for k, v in err.items()))
+    for k, v in err.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    if any(err.values()):
+        raise AssertionError(f"a transpose moved bits wrongly: {err}")
+    return keep
 
 
 def check_speckle(disp, max_diff, max_size, errs, tag):
@@ -351,6 +483,13 @@ def phase_kernels(errs):
         lt = sobel_clip(torch.tensor(left, device=DEVICE), 63)
         rt = sobel_clip(torch.tensor(right, device=DEVICE), 63)
         check_kernels(lt, rt, params, errs)
+        for num_paths in (8, 4, 2):
+            for md in (0, 3):
+                C = check_staged_kernels(lt, rt, SGBMParams(
+                    num_disparities=D, block_size=5, speckle_window_size=0,
+                    num_paths=num_paths, min_disparity=md), errs)[0]
+        check_transposes(C[0], errs, "(H, W, D)")
+        del C
         torch.cuda.empty_cache()
     for H, W in ((32, 48), (96, 160)):
         d = torch.tensor(_noisy_disp(2, H, W, seed=H), device=DEVICE)
@@ -532,7 +671,146 @@ def phase_main_path(card, errs, frames):
         log(f"main path [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) per launch")
-    return times, bounds
+    del C, S, C_p, S_p
+    torch.cuda.empty_cache()
+    return times, bounds, (out["left_rectified"], out["right_rectified"],
+                           out["disparity"], params)
+
+
+def phase_staged_chain(card, errs, rect):
+    """The staged matcher chain on the slice-1 path's rectified frames
+    (``rect``: left, right, the path's disparity, its parameters): a counted
+    run of sgbm_staged_cuda; its map against sgbm_cuda's and the path's;
+    cost_down against K1 and three K2 passes; the chain's kernels against
+    their plain versions on the full batch; times, bounds, the two chains
+    in turns and their peak memory. Then a counted run of the stage
+    profiler, which launches the transposes, and the transposes on one
+    frame's volume at the profiler's shapes, checked and timed."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    left, right, disp_path, params = rect
+    B, H, W = left.shape
+    D = params.num_disparities
+
+    def counted(fn):
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sc.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(sc.LAUNCHES), torch.cuda.max_memory_allocated()
+
+    disp, launches, peak = counted(
+        lambda: sc.sgbm_staged_cuda(left, right, params))
+    log(f"staged chain launches: {launches}")
+    if {k: v for k, v in launches.items() if v} != STAGED_CHAIN:
+        raise AssertionError(f"the staged chain's kernels did not run as "
+                             f"expected: {launches}")
+    fused, _, peak_fused = counted(lambda: sc.sgbm_cuda(left, right, params))
+    if not (torch.equal(disp, fused) and torch.equal(disp, disp_path)):
+        raise AssertionError("sgbm_staged_cuda differs from sgbm_cuda or "
+                             "from the slice-1 path")
+    log(f"staged chain: sgbm_staged_cuda's map equal to sgbm_cuda's and to "
+        f"the slice-1 path's on {B} frames (valid "
+        f"{float((disp >= 0).float().mean()):.4f})")
+    del disp, fused
+
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(left, cap).contiguous()
+    rt = plain.sobel_clip(right, cap).contiguous()
+    C, S_down, S_up, S_h = check_staged_kernels(lt, rt, params, errs,
+                                                "on the main path's inputs ")
+    S32 = torch.empty(C.shape, dtype=torch.int32, device=C.device)
+    down = plain.down_dirs(params.num_paths)
+    for i, (dy, dx) in enumerate(down):
+        sc.sgm_pass(C, S32, dy, dx, params.P1, params.P2, i > 0)
+    if not (torch.equal(C, sc.cost_volume(lt, rt, params))
+            and torch.equal(S_down.int(), S32)):
+        raise AssertionError("cost_down differs from K1 or from K2's "
+                             "down-going passes")
+    log(f"staged chain: cost_down's C equal to K1's and its sum to "
+        f"{len(down)} K2 passes")
+    del S32
+
+    ab = in_turns_ms([lambda: sc.sgbm_cuda(left, right, params),
+                      lambda: sc.sgbm_staged_cuda(left, right, params)])
+    for chain, t, pk in zip(("fused", "staged"), ab, (peak_fused, peak)):
+        ms = sum(t) / len(t)
+        log(f"A/B [{card}]: matcher alone, batch {B}, {chain} chain: "
+            f"{ms:.3f} ms per call (turns {', '.join(f'{x:.3f}' for x in t)})"
+            f", peak memory {pk / 2**30:.2f} GiB")
+
+    P1, P2 = float(params.P1), float(params.P2)
+    sums = ([(0, 1), (0, -1)], plain.up_dirs(params.num_paths))
+    n_i16 = sum(len(d) for d in sums)
+    C_p = C.float()
+    times = {
+        "cost_down": (cuda_ms(lambda: sc.cost_down(lt, rt, params), 3),
+                      cuda_ms(lambda: plain.cost_down(lt, rt, params), 1),
+                      None),
+        "sgm_pass_i16": (
+            cuda_ms(lambda: [sc.aggregate_i16(C, params, d) for d in sums],
+                    2) / n_i16,
+            cuda_ms(lambda: [plain.directional_pass(C_p, dy, dx, P1, P2)
+                             for d in sums for dy, dx in d], 1) / n_i16,
+            None),
+        "wta_lr3": (
+            cuda_ms(lambda: sc.wta_lr3(S_down, S_up, S_h, params), 3),
+            cuda_ms(lambda: plain.wta_lr3(S_down, S_up, S_h, params), 1),
+            None),
+    }
+    del C_p, S_down, S_up, S_h
+    px, el = B * H * W, B * H * W * D
+    # cost_down: the two images in, two int16 volumes out; K1's ~14
+    # operations per element and ~8 per path update. K2 on an int16 S: a
+    # storing pass moves 4 B per element, an accumulating one 6; the mean
+    # over the chain's passes. wta_lr3: three int16 volumes in, the map out
+    n_store = len(sums)
+    bounds = {
+        "cost_down": bound(2 * 4 * px + 2 * 2 * el, (14 + 8 * len(down)) * el),
+        "sgm_pass_i16": bound((4 * n_store + 6 * (n_i16 - n_store)) / n_i16
+                              * el, 8 * el),
+        "wta_lr3": bound(3 * 2 * el + 4 * px, 6 * el),
+    }
+    for name, (ms, plain_ms, _) in times.items():
+        log(f"staged chain [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) per launch")
+
+    # the transposes: the stage profiler is the entry point that runs them
+    sys.path.insert(0, str(ROOT / "tools"))
+    import profile_stages_torch
+    torch.cuda.synchronize()
+    sc.reset_launch_counts()
+    report = profile_stages_torch.run(DEVICE, H, W, D, batch=1, reps=3,
+                                      out=sys.stdout)
+    torch.cuda.synchronize()
+    launches.update({k: sc.LAUNCHES[k] for k in TRANSPOSES})
+    log(f"stage profiler [{card}]: launches {dict(sc.LAUNCHES)}; sums of "
+        f"stages {report['chain_ms']}")
+    if min(launches[k] for k in TRANSPOSES) < 1:
+        raise AssertionError(f"a transpose was not launched: {launches}")
+    Cd = C[0].permute(2, 0, 1).contiguous()        # (D, H, W)
+    del C
+    torch.cuda.empty_cache()
+    Cw = check_transposes(Cd, errs, "(D, H, W)")[2]    # (W, D, H)
+    # the profiler's three: (D,H,W) -> (W,D,H), that back to (H,D,W), and
+    # (D,H,W) -> (H,D,W); the plain version is the library call itself
+    for name, fn, fn_p, x in (
+            ("transpose_dhw", sc.transpose_dhw_to_wdh,
+             plain.transpose_dhw_to_wdh, Cd),
+            ("transpose_vol", sc.transpose_vol, plain.transpose_vol, Cw),
+            ("transpose_leading", sc.transpose_leading,
+             plain.transpose_leading, Cd)):
+        lib_ms = cuda_ms(lambda: fn_p(x), 5)
+        times[name] = (cuda_ms(lambda: fn(x), 5), lib_ms, lib_ms)
+        bounds[name] = bound(2 * x.numel() * x.element_size(), 0)
+        log(f"transposes [{card}]: {name} {tuple(x.shape)} int16: kernel "
+            f"{times[name][0]:.3f} ms, permute().contiguous() {lib_ms:.3f} "
+            f"ms, bound {bounds[name][0]:.3f} ms ({bounds[name][1]})")
+    return launches, times, bounds
 
 
 def phase_full_path(card, errs, frames):
@@ -957,7 +1235,9 @@ def main():
     phase_kernels(errs)
     phase_matcher()
     frames = render_frames(*MAIN[:3])
-    times1, bounds1 = phase_main_path(card, errs, frames)
+    times1, bounds1, rect = phase_main_path(card, errs, frames)
+    launches5, times5, bounds5 = phase_staged_chain(card, errs, rect)
+    del rect
     launches, times2, bounds2, stacked, maps = phase_full_path(card, errs,
                                                                frames)
     launches4, times4, bounds4 = phase_sort_family(card, errs, maps, 2, 200)
@@ -973,8 +1253,9 @@ def main():
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})
     launches.update({k: launches4[k] for k in SORT_FAMILY})
-    times = {**times1, **times2, **times3, **times4}
-    bounds = {**bounds1, **bounds2, **bounds3, **bounds4}
+    launches.update({k: launches5[k] for k in (*STAGED_CHAIN, *TRANSPOSES)})
+    times = {**times1, **times2, **times3, **times4, **times5}
+    bounds = {**bounds1, **bounds2, **bounds3, **bounds4, **bounds5}
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -24,6 +24,13 @@ un-mirrored orientation: ``cost_volume_pair`` defines it as the mirrored
 build flipped back, and ``wta_lr(..., mirror_lr=True)`` is the WTA/LR of
 the mirrored volume flipped back, written without the flips. The 8-path
 sum needs no mirrored form: its directions are closed under dx -> -dx.
+
+The staged chain (``sgbm_staged``) is the matcher on partial path sums:
+``cost_down`` gives the cost volume and the down-going sum together,
+separate passes the horizontal and the up-going sums, and ``wta_lr3`` takes
+the three. ``transpose_vol``, ``transpose_leading`` and
+``transpose_dhw_to_wdh`` are the plain versions of the volume transposes
+(csrc/transpose.cu); the port's own layout needs none of them.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "cost_volume", "directional_pass", "aggregate_paths", "wta",
            "lr_check", "wta_lr", "speckle_labels", "speckle_keep",
            "propagate_keep", "speckle_keep_seeded", "speckle_filter", "sgbm",
-           "compute_disparity_pair", "cost_volume_pair", "sgbm_pair"]
+           "compute_disparity_pair", "cost_volume_pair", "sgbm_pair",
+           "down_dirs", "up_dirs", "cost_down", "wta_lr3", "sgbm_staged",
+           "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -501,3 +510,77 @@ def sgbm_pair(left: torch.Tensor, right: torch.Tensor,
                                 params.speckle_window_size)
         out.append(disp)
     return out[0], out[1]
+
+
+def down_dirs(num_paths: int):
+    """The down-going path directions of the staged chain: the vertical
+    one, with its two diagonals when there are 8 paths."""
+    return [(1, 0), (1, 1), (1, -1)] if num_paths == 8 else [(1, 0)]
+
+
+def up_dirs(num_paths: int):
+    """The up-going counterpart of ``down_dirs``."""
+    return [(-dy, dx) for dy, dx in down_dirs(num_paths)]
+
+
+def _sum_passes(C: torch.Tensor, dirs, params: SGBMParams) -> torch.Tensor:
+    S = torch.zeros_like(C)
+    for dy, dx in dirs:
+        S += directional_pass(C, dy, dx, float(params.P1), float(params.P2))
+    return S
+
+
+def cost_down(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C, S_down3) of Sobel-clipped (..., H, W) images, both
+    (..., H, W, D) float32: ``cost_volume`` and the sum of the down-going
+    passes over it (``down_dirs``: three with 8 paths, the vertical one
+    alone otherwise). The plain version of the fused cost + down kernel
+    (csrc/cost_down.cu)."""
+    C = cost_volume(lt, rt, params)
+    return C, _sum_passes(C, down_dirs(params.num_paths), params)
+
+
+def wta_lr3(S_down: torch.Tensor, S_up: torch.Tensor, S_h: torch.Tensor,
+            params: SGBMParams, apply_lr: bool = True) -> torch.Tensor:
+    """``wta_lr`` on the sum of three partial path sums: the plain version
+    of the three-input WTA/LR kernel (csrc/wta_lr.cu)."""
+    S = (S_down.to(torch.float32) + S_up.to(torch.float32)
+         + S_h.to(torch.float32))
+    return wta_lr(S, params, apply_lr)
+
+
+def transpose_vol(x: torch.Tensor) -> torch.Tensor:
+    """(A, D, B) -> (B, D, A), bits unchanged."""
+    return x.permute(2, 1, 0).contiguous()
+
+
+def transpose_leading(x: torch.Tensor) -> torch.Tensor:
+    """(A, B, W) -> (B, A, W), bits unchanged."""
+    return x.permute(1, 0, 2).contiguous()
+
+
+def transpose_dhw_to_wdh(x: torch.Tensor) -> torch.Tensor:
+    """(D, H, W) -> (W, D, H), bits unchanged."""
+    return x.permute(2, 0, 1).contiguous()
+
+
+def sgbm_staged(left: torch.Tensor, right: torch.Tensor,
+                params: SGBMParams = SGBMParams(), apply_lr: bool = True,
+                apply_speckle: bool = True) -> torch.Tensor:
+    """``sgbm`` by the staged chain: Sobel, ``cost_down``, the horizontal
+    sum, the up-going sum, ``wta_lr3``, then the speckle filter. Needs 4
+    or 8 paths; equal to ``sgbm`` bit for bit (integer path values)."""
+    if params.num_paths < 4:
+        raise ValueError("the staged chain needs 4 or 8 paths, got "
+                         f"{params.num_paths}")
+    cap = params.pre_filter_cap
+    C, S_down = cost_down(sobel_clip(left, cap), sobel_clip(right, cap),
+                          params)
+    S_h = _sum_passes(C, [(0, 1), (0, -1)], params)
+    S_up = _sum_passes(C, up_dirs(params.num_paths), params)
+    disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
+    if apply_speckle and params.speckle_window_size > 0:
+        disp = speckle_keep(disp, speckle_labels(disp, params.speckle_range),
+                            params.speckle_window_size)
+    return disp

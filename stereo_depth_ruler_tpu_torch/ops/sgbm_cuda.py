@@ -23,12 +23,28 @@ rounds of segmented sweeps, on the sweep kernel (csrc/sweep.cu):
 compositions ``speckle_keep_seeded`` and ``speckle_filter`` on top, which
 also use the sort kernels of ``ops/sort_cuda.py``.
 
+The staged chain (``sgbm_staged_cuda``, the counterpart of the JAX
+package's cost + down, directional passes and ``wta_lr_pallas`` chain)
+runs the same matcher on int16 partial path sums:
+
+- ``cost_down`` (csrc/cost_down.cu): C and the down-going sum in one
+  kernel;
+- ``sgm_pass`` with an int16 S (csrc/sgm_pass.cu, counted as
+  ``sgm_pass_i16``; ``aggregate_i16`` sums a set of directions): the
+  horizontal and the up-going sums;
+- ``wta_lr3`` (csrc/wta_lr.cu): K3's body on the sum of the three.
+
+``transpose_vol``, ``transpose_leading`` and ``transpose_dhw_to_wdh``
+(csrc/transpose.cu) are the JAX package's three volume transposes; the
+port's layout needs none of them, the stage profiler times them.
+
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
 ``ops/sgbm.py``; a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches per wrapper and mode (``cost_box_pair`` and
 ``wta_lr_mirror`` are the pair modes, ``sweep_labels`` and
-``sweep_propagate`` the sweep kernel's two); nothing else touches it.
+``sweep_propagate`` the sweep kernel's two, ``sgm_pass_i16`` K2 on an
+int16 S); nothing else touches it.
 """
 
 from __future__ import annotations
@@ -47,11 +63,16 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "cost_volume_pair", "sgm_pass", "aggregate", "wta_lr",
            "speckle_labels", "speckle_keep", "sweep_labels", "propagate_keep",
            "speckle_keep_seeded", "speckle_filter", "sgbm_cuda",
-           "sgbm_pair_cuda"]
+           "sgbm_pair_cuda", "cost_down", "aggregate_i16", "wta_lr3",
+           "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
+           "sgbm_staged_cuda"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
-            "sweep_labels": 0, "sweep_propagate": 0}
+            "sweep_labels": 0, "sweep_propagate": 0, "cost_down": 0,
+            "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
+            "transpose_leading": 0, "transpose_dhw": 0}
+I16_MAX = 32767
 
 
 def reset_launch_counts() -> None:
@@ -109,28 +130,65 @@ def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor,
     return _cost_box(lt, rt, params, pair=True)
 
 
+def path_sum_bound(params: SGBMParams, n_paths: int) -> int:
+    """The largest value a sum of ``n_paths`` path volumes can take: each
+    L is at most the largest box cost, block_size^2 * 4 * pre_filter_cap,
+    plus P2."""
+    cmax = params.block_size ** 2 * 4 * params.pre_filter_cap
+    return n_paths * (cmax + params.P2)
+
+
+def _check_i16(bound: Optional[int], what: str) -> None:
+    if bound is None:
+        raise ValueError(f"{what}: an int16 sum needs sum_bound, the largest "
+                         "value it can take (path_sum_bound)")
+    if bound > I16_MAX:
+        raise ValueError(f"{what}: the sum can reach {bound}, past int16's "
+                         f"{I16_MAX}; use the int32 S")
+
+
 def sgm_pass(C: torch.Tensor, S: torch.Tensor, dy: int, dx: int,
-             P1: int, P2: int, accumulate: bool) -> None:
-    """One path direction over C (B, H, W, D) int16, written into the int32
-    S in place: S = L, or S += L with ``accumulate``."""
+             P1: int, P2: int, accumulate: bool,
+             sum_bound: Optional[int] = None) -> None:
+    """One path direction over C (B, H, W, D) int16, written into S in
+    place: S = L, or S += L with ``accumulate``. S is int32, or int16 for a
+    partial sum; an int16 S needs ``sum_bound``, the largest value the sum
+    can take after this pass (``path_sum_bound``), and a bound past 32767
+    raises: the kernel never wraps or clamps."""
+    if S.dtype == torch.int16:
+        _check_i16(sum_bound, "sgm_pass")
     if not kernels.on_cuda(C, S):
         L = plain.directional_pass(C.to(torch.float32), dy, dx,
-                                   float(P1), float(P2)).to(torch.int32)
+                                   float(P1), float(P2)).to(S.dtype)
         if accumulate:
             S += L
         else:
             S.copy_(L)
         return
     kernels.require(C, torch.int16, 4, "C")
-    kernels.require(S, torch.int32, 4, "S")
+    i16 = S.dtype == torch.int16
+    kernels.require(S, torch.int16 if i16 else torch.int32, 4, "S")
     if C.shape != S.shape:
         raise ValueError(f"shape mismatch {tuple(C.shape)} {tuple(S.shape)}")
     B, H, W, D = C.shape
-    rc = kernels.load().sdr_sgm_pass(C.data_ptr(), S.data_ptr(), B, H, W, D,
-                                     dy, dx, int(P1), int(P2),
-                                     int(accumulate), kernels.stream())
-    kernels.check(rc, "sgm_pass")
-    LAUNCHES["sgm_pass"] += 1
+    lib = kernels.load()
+    rc = (lib.sdr_sgm_pass_i16 if i16 else lib.sdr_sgm_pass)(
+        C.data_ptr(), S.data_ptr(), B, H, W, D, dy, dx, int(P1), int(P2),
+        int(accumulate), kernels.stream())
+    name = "sgm_pass_i16" if i16 else "sgm_pass"
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+
+
+def aggregate_i16(C: torch.Tensor, params: SGBMParams, dirs) -> torch.Tensor:
+    """Sum of the directional passes ``dirs`` over C as a (B, H, W, D)
+    int16 partial sum; raises ValueError where it could pass int16."""
+    dirs = list(dirs)
+    S = torch.empty(C.shape, dtype=torch.int16, device=C.device)
+    for i, (dy, dx) in enumerate(dirs):
+        sgm_pass(C, S, dy, dx, params.P1, params.P2, accumulate=i > 0,
+                 sum_bound=path_sum_bound(params, len(dirs)))
+    return S
 
 
 def aggregate(C: torch.Tensor, params: SGBMParams) -> torch.Tensor:
@@ -284,6 +342,121 @@ def speckle_keep(disp: torch.Tensor, labels: torch.Tensor,
     kernels.check(rc, "speckle_keep")
     LAUNCHES["speckle_keep"] += 1
     return out
+
+
+def cost_down(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, W) Sobel-clipped images -> (C, S_down3), both (B, H, W, D)
+    int16: K1's cost volume and the sum of the down-going passes over it
+    (``plain.down_dirs``), from one kernel. Raises ValueError where the sum
+    could pass int16."""
+    _check_params(params)
+    n_dirs = len(plain.down_dirs(params.num_paths))
+    _check_i16(path_sum_bound(params, n_dirs), "cost_down")
+    if not kernels.on_cuda(lt, rt):
+        C, S3 = plain.cost_down(lt, rt, params)
+        return C.to(torch.int16), S3.to(torch.int16)
+    kernels.require(lt, torch.float32, 3, "lt")
+    kernels.require(rt, torch.float32, 3, "rt")
+    if lt.shape != rt.shape:
+        raise ValueError(f"shape mismatch {tuple(lt.shape)} {tuple(rt.shape)}")
+    B, H, W = lt.shape
+    D = params.num_disparities
+    C = torch.empty((B, H, W, D), dtype=torch.int16, device=lt.device)
+    S3 = torch.empty_like(C)
+    # the L rows of the previous and the current image row, per direction
+    scratch = torch.empty((2, 3, B, W, D), dtype=torch.int16,
+                          device=lt.device)
+    rc = kernels.load().sdr_cost_down(
+        lt.data_ptr(), rt.data_ptr(), C.data_ptr(), S3.data_ptr(),
+        scratch.data_ptr(), B, H, W, D, params.min_disparity,
+        params.block_size, params.P1, params.P2, n_dirs, kernels.stream())
+    kernels.check(rc, "cost_down")
+    LAUNCHES["cost_down"] += 1
+    return C, S3
+
+
+def wta_lr3(S_down: torch.Tensor, S_up: torch.Tensor, S_h: torch.Tensor,
+            params: SGBMParams, apply_lr: bool = True) -> torch.Tensor:
+    """Three (B, H, W, D) int16 partial path sums -> (B, H, W) float32
+    disparity, -1.0 where invalid: ``wta_lr`` on their sum, which is formed
+    in registers and never stored."""
+    if not kernels.on_cuda(S_down, S_up, S_h):
+        return plain.wta_lr3(S_down, S_up, S_h, params, apply_lr)
+    for t, name in ((S_down, "S_down"), (S_up, "S_up"), (S_h, "S_h")):
+        kernels.require(t, torch.int16, 4, name)
+        if t.shape != S_down.shape:
+            raise ValueError(f"shape mismatch {tuple(t.shape)} "
+                             f"{tuple(S_down.shape)}")
+    B, H, W, D = S_down.shape
+    out = torch.empty((B, H, W), dtype=torch.float32, device=S_down.device)
+    rc = kernels.load().sdr_wta_lr3(
+        S_down.data_ptr(), S_up.data_ptr(), S_h.data_ptr(), out.data_ptr(),
+        B, H, W, D, params.min_disparity, params.uniqueness_ratio,
+        int(params.quantize_16), params.disp12_max_diff, int(apply_lr),
+        kernels.stream())
+    kernels.check(rc, "wta_lr3")
+    LAUNCHES["wta_lr3"] += 1
+    return out
+
+
+def _transpose(x: torch.Tensor, name: str, out_shape, plain_fn
+               ) -> torch.Tensor:
+    """Launch one of the transposes of csrc/transpose.cu on a CUDA volume
+    of 2- or 4-byte elements; the bits move unchanged."""
+    if not kernels.on_cuda(x):
+        return plain_fn(x)
+    if x.dim() != 3 or not x.is_contiguous() or x.element_size() not in (2, 4):
+        raise ValueError(f"{name}: need a contiguous 3-d tensor of 2- or "
+                         f"4-byte elements, got {x.dtype} {tuple(x.shape)}")
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    if x.numel():
+        rc = getattr(kernels.load(), "sdr_" + name)(
+            x.data_ptr(), out.data_ptr(), *x.shape, x.element_size(),
+            kernels.stream())
+        kernels.check(rc, name)
+        LAUNCHES[name] += 1
+    return out
+
+
+def transpose_vol(x: torch.Tensor) -> torch.Tensor:
+    """(A, D, B) -> (B, D, A): the JAX package's ``transpose_vol_pallas``."""
+    A, D, B = x.shape
+    return _transpose(x, "transpose_vol", (B, D, A), plain.transpose_vol)
+
+
+def transpose_leading(x: torch.Tensor) -> torch.Tensor:
+    """(A, B, W) -> (B, A, W): ``transpose_leading_pallas``."""
+    A, B, W = x.shape
+    return _transpose(x, "transpose_leading", (B, A, W),
+                      plain.transpose_leading)
+
+
+def transpose_dhw_to_wdh(x: torch.Tensor) -> torch.Tensor:
+    """(D, H, W) -> (W, D, H): ``transpose_dhw_to_wdh_pallas``."""
+    D, H, W = x.shape
+    return _transpose(x, "transpose_dhw", (W, D, H),
+                      plain.transpose_dhw_to_wdh)
+
+
+def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
+                     params: SGBMParams = SGBMParams(), apply_lr: bool = True,
+                     apply_speckle: bool = True) -> torch.Tensor:
+    """``sgbm_cuda`` by the staged chain, equal to it bit for bit:
+    ``cost_down``, two horizontal and one or three up-going passes into
+    int16 partial sums, ``wta_lr3``, then the speckle filter. Needs 4 or 8
+    paths and partial sums that fit int16 (ValueError otherwise)."""
+    _check_params(params)
+    if params.num_paths < 4:
+        raise ValueError("the staged chain needs 4 or 8 paths, got "
+                         f"{params.num_paths}")
+    lt, rt = _sobel_pair(left, right, params)
+    C, S_down = cost_down(lt, rt, params)
+    S_h = aggregate_i16(C, params, [(0, 1), (0, -1)])
+    S_up = aggregate_i16(C, params, plain.up_dirs(params.num_paths))
+    disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
+    del C, S_down, S_h, S_up
+    return _speckle(disp, params) if apply_speckle else disp
 
 
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,

@@ -46,6 +46,20 @@ _SIGNATURES = {
     "sdr_cost_box": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # C, S, B, H, W, D, dy, dx, P1, P2, acc, stream
     "sdr_sgm_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # C, S (int16), B, H, W, D, dy, dx, P1, P2, acc, stream
+    "sdr_sgm_pass_i16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lt, rt, C, S3, Lbuf, B, H, W, D, md, block, P1, P2, ndir, stream
+    "sdr_cost_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # Sd, Su, Sh, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr,
+    # stream
+    "sdr_wta_lr3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # in, out, A, D, B, esize, stream: (A, D, B) -> (B, D, A)
+    "sdr_transpose_vol": [_P, _P, _I, _I, _I, _I, _P],
+    # in, out, A, B, W, esize, stream: (A, B, W) -> (B, A, W)
+    "sdr_transpose_leading": [_P, _P, _I, _I, _I, _I, _P],
+    # in, out, D, H, W, esize, stream: (D, H, W) -> (W, D, H)
+    "sdr_transpose_dhw": [_P, _P, _I, _I, _I, _I, _P],
     # S, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr, mirror_from,
     # stream
     "sdr_wta_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -292,3 +292,91 @@ def test_wls_kernels_match_plain(cuda, H, W):
     f_p, conf_p = wplain.wls_disparity_filter(dl, dr, guide, max_disp=32)
     assert torch.equal(conf, conf_p)
     assert torch.equal(f, f_p)
+
+
+@pytest.mark.parametrize("H,W,kw", [
+    (32, 48, dict(num_disparities=16)),
+    (40, 72, dict(num_disparities=48, min_disparity=3)),
+    (24, 40, dict(num_disparities=64, num_paths=4)),       # W < D
+    (48, 300, dict(num_disparities=256, min_disparity=5, num_paths=2)),
+    (36, 100, dict(num_disparities=32, block_size=3, uniqueness_ratio=0,
+                   quantize_16=False, disp12_max_diff=-1)),
+    (30, 90, dict(num_disparities=80, block_size=1, p1=8, p2=32)),
+    (1, 50, dict(num_disparities=16)),                     # one row
+])
+def test_staged_kernels_match_plain(cuda, H, W, kw):
+    """The fused cost + down kernel, K2 on an int16 S and the three-input
+    WTA/LR against their plain versions and against K1-K3, bitwise."""
+    params = SGBMParams(speckle_window_size=0, **kw)
+    D = params.num_disparities
+    left, right = pair(H, W, D, seed=H)
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    C, S_down = sc.cost_down(lt, rt, params)
+    torch.cuda.synchronize()
+    C_p, S_down_p = plain.cost_down(lt, rt, params)
+    assert C.dtype == S_down.dtype == torch.int16
+    assert torch.equal(C.float(), C_p)
+    assert torch.equal(S_down.float(), S_down_p)
+    assert torch.equal(C, sc.cost_volume(lt, rt, params))
+    up = plain.up_dirs(params.num_paths)
+    S_h = sc.aggregate_i16(C, params, [(0, 1), (0, -1)])
+    S_up = sc.aggregate_i16(C, params, up)
+    torch.cuda.synchronize()
+    S32 = torch.empty(C.shape, dtype=torch.int32, device=cuda)
+    for i, (dy, dx) in enumerate(up):
+        sc.sgm_pass(C, S32, dy, dx, params.P1, params.P2, i > 0)
+    assert S_up.dtype == torch.int16 and torch.equal(S_up.int(), S32)
+    for apply_lr in (True, False):
+        got = sc.wta_lr3(S_down, S_up, S_h, params, apply_lr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.wta_lr3(S_down, S_up, S_h, params,
+                                              apply_lr))
+        if params.num_paths >= 4:
+            assert torch.equal(got, sc.wta_lr(sc.aggregate(C, params), params,
+                                              apply_lr))
+
+
+@pytest.mark.parametrize("speckle", [0, 20])
+@pytest.mark.parametrize("num_paths", [4, 8])
+def test_staged_matcher_matches_fused(cuda, num_paths, speckle):
+    params = SGBMParams(num_disparities=32, speckle_window_size=speckle,
+                        speckle_range=2, num_paths=num_paths)
+    left, right = (torch.tensor(a, device=cuda) for a in pair(60, 140, 32, 9))
+    got = sc.sgbm_staged_cuda(left, right, params)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sc.sgbm_cuda(left, right, params))
+    assert torch.equal(got, plain.sgbm_staged(left, right, params))
+    with pytest.raises(ValueError, match="int16"):
+        sc.sgbm_staged_cuda(left, right, SGBMParams(num_disparities=32,
+                                                    block_size=7))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 8, 24), (70, 5, 131), (3, 33, 1),
+                                   (128, 40, 96)])
+def test_transposes_match_permute(cuda, dtype, shape):
+    """The three transposes against permute().contiguous(), bit for bit
+    (compared as integers, so a NaN pattern counts too), and there and
+    back; extents that divide no tile."""
+    g = torch.Generator(device="cuda").manual_seed(shape[0])
+    nbits = torch.empty((), dtype=dtype).element_size() * 8
+    ibits = torch.int16 if nbits == 16 else torch.int32
+    x = torch.randint(-2 ** (nbits - 1), 2 ** (nbits - 1) - 1, shape,
+                      generator=g, device=cuda,
+                      dtype=torch.int64).to(ibits).view(dtype)
+    for fn, fn_p in ((sc.transpose_vol, plain.transpose_vol),
+                     (sc.transpose_leading, plain.transpose_leading),
+                     (sc.transpose_dhw_to_wdh, plain.transpose_dhw_to_wdh)):
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert torch.equal(got.view(ibits), fn_p(x).view(ibits))
+    assert torch.equal(sc.transpose_vol(sc.transpose_vol(x)).view(ibits),
+                       x.view(ibits))
+    assert torch.equal(
+        sc.transpose_leading(sc.transpose_leading(x)).view(ibits),
+        x.view(ibits))
+    y = sc.transpose_dhw_to_wdh
+    assert torch.equal(y(y(y(x))).view(ibits), x.view(ibits))

@@ -33,7 +33,8 @@ MODULES = ["stereo_depth_ruler_tpu_torch",
            "stereo_depth_ruler_tpu_torch.ops.wls_cuda",
            "stereo_depth_ruler_tpu_torch.ops.remap",
            "stereo_depth_ruler_tpu_torch.ops.reproject",
-           "stereo_depth_ruler_tpu_torch.utils.kernels"]
+           "stereo_depth_ruler_tpu_torch.utils.kernels",
+           "stereo_depth_ruler_tpu_torch.utils.profiling"]
 SLICE = SGBMParams(num_disparities=16, speckle_window_size=0)
 
 
@@ -62,7 +63,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "tests/test_torch_cuda.py"]))
+    + ["chip_smoke.py", "tests/test_torch_cuda.py",
+       "tools/profile_stages_torch.py"]))
 def test_no_jax_package_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "stereo_depth_ruler_tpu"}, roots
@@ -133,8 +135,9 @@ def test_unported_configurations_raise(cfg):
 def test_kernel_sources_are_packaged():
     from stereo_depth_ruler_tpu_torch.utils import kernels
     names = sorted(p.name for p in kernels.CSRC_DIR.glob("*.cu"))
-    assert names == ["cost_box.cu", "fgs_pass.cu", "radix_sort.cu",
-                     "sgm_pass.cu", "shift_gather.cu", "sorted_runs.cu",
-                     "speckle.cu", "sweep.cu", "wta_lr.cu"]
+    assert names == ["cost_box.cu", "cost_down.cu", "fgs_pass.cu",
+                     "radix_sort.cu", "sgm_pass.cu", "shift_gather.cu",
+                     "sorted_runs.cu", "speckle.cu", "sweep.cu",
+                     "transpose.cu", "wta_lr.cu"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
