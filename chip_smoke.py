@@ -65,7 +65,14 @@ Phases, each of which raises (and exits non-zero) on failure:
    mode on the path's own inputs (8x720x1280x128, both volumes) against
    their plain versions frame by frame, bitwise, the two modes timed, and
    sgbm_pair_cuda's two maps equal to the stacked matcher's; then a
-   profile of the shared path.
+   profile of the shared path;
+9. configurations: K1 at blocks 1, 3, 7, 9 and 11 on a 720x1280x128
+   frame against its plain version, bitwise, and timed; StereoPipeline at
+   the reference's defaults (downscale 2, 80 disparities, speckle 200/2,
+   right matcher, WLS) on BGR frames with remap_precision="f32", and with
+   lr_mode="none" and no WLS, each equal to the plain chain on its own
+   rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3
+   against their plain versions and the fused and staged matcher equal.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -153,6 +160,8 @@ DEVICE = "cuda"
 KERNEL_SHAPES = ((32, 48, 16), (96, 160, 48), (720, 1280, 128))
 SERPENTINE = (720, 1280)
 MAIN = (8, 720, 1280, 128)
+# (H, W, D) of the stress shape (the JAX package's bench.py:181-192)
+STRESS = (1440, 2560, 256)
 
 
 def log(*a):
@@ -216,12 +225,18 @@ def phase_build():
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", ptxas)]
     log(f"ptxas: {len(regs)} kernel instances, registers "
         f"{min(regs)}..{max(regs)}, spill stores {max(spills)} bytes max")
-    # K1 at block 5 (the main paths'): the single-volume and the pair kernel
-    k1 = re.findall(r"entry function '\w*(cost_box|cost_pair)_kernelILi5E\w*'"
-                    r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers",
-                    ptxas)
-    log("ptxas: K1 at block 5: " + ", ".join(f"{name}_kernel {n} registers"
-                                              for name, n in k1))
+    entries = ptxas_entries(ptxas)
+    # K1 at every block size: the row-sliding single-volume kernel; the
+    # pair kernel at block 5 (the main paths'), which must not move
+    log("ptxas: K1 cost_box_kernel by block: " + ", ".join(
+        f"{b}: {n} registers, {sp} B spilled" for name, b, n, sp in entries
+        if name == "cost_box_kernel"))
+    log("ptxas: K1 at block 5: " + ", ".join(
+        f"{name} {n} registers" for name, b, n, _ in entries
+        if name in ("cost_box_kernel", "cost_pair_kernel") and b == "5"))
+    log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
+                                 for name, _, n, sp in entries
+                                 if name == "fgs_pass_kernel"))
     # the matcher kernels at 128 disparities (4 per lane): K2 and K3 as the
     # three paths run them, and the staged chain's beside them
     d128 = re.findall(
@@ -231,6 +246,29 @@ def phase_build():
     log("ptxas: at 4 disparities per lane: " + ", ".join(
         f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
         for name, acc, n in d128))
+
+
+def ptxas_entries(ptxas):
+    """(kernel name, first template integer or '', registers, spill-store
+    bytes) of every kernel entry in an nvcc -Xptxas -v report."""
+    out = []
+    for chunk in ptxas.split("Compiling entry function '")[1:]:
+        head = chunk.split("'", 1)[0]
+        n = re.search(r"Used (\d+) registers", chunk)
+        sp = re.search(r"(\d+) bytes spill stores", chunk)
+        # <length><name> of the mangling; a namespace hash may run into the
+        # length's digits, so try every suffix of each digit run
+        found = None
+        for m in re.finditer(r"\d+", head):
+            for k in range(m.start(), m.end()):
+                name = head[m.end():m.end() + int(head[k:m.end()])]
+                if name.endswith("_kernel"):
+                    found = found or (name, m.end() + len(name))
+        if found and n:
+            t = re.match(r"ILi(\d+)E", head[found[1]:])
+            out.append((found[0], t.group(1) if t else "", int(n.group(1)),
+                        int(sp.group(1)) if sp else 0))
+    return out
 
 
 def _pair(H, W, shift, seed):
@@ -658,7 +696,8 @@ def phase_main_path(card, errs, frames):
     }
     px, el = B * H * W, B * H * W * D
     # bytes: each input read once, each output written once; operations
-    # per volume element: K1 ~14 (BT terms, min, sliding box sum), K2 ~8
+    # per volume element: K1 ~14 (1.1 BT evaluations of 9 operations, the
+    # sliding row sum and the ring's vertical update), K2 ~8
     # (four-way min, add, subtract), K3 ~4 (packed key, min, uniqueness)
     bounds = {
         "cost_box": bound(2 * 4 * px + 2 * el, 14 * el),
@@ -884,16 +923,16 @@ def phase_full_path(card, errs, frames):
                      None),
     }
     px2, px = 2 * B * H * W, B * H * W
-    # K6 per pixel and launch (mean of the row and the column pass): two
-    # PCR solves of ceil(log2 N) rounds at ~16 operations (2 divisions,
-    # 14 multiplies and adds) on two right-hand sides' worth of state,
-    # plus ~30 for the weights, coefficients and residual
-    rounds = ((W - 1).bit_length() + (H - 1).bit_length()) / 2
+    # K6 per pixel and launch, counted from the Thomas solve (once per
+    # element, though the kernel's two right-hand-side threads each repeat
+    # the shared part): the weight 4 (subtract, abs, divide, exp), the
+    # coefficients 4, the elimination 11 (den 2, the reciprocal, c' 2, each
+    # of the two d' 3) and back substitution 4
     bounds = {
         "speckle_labels": bound(8 * px2, 4 * px2),
         "speckle_keep": bound(12 * px2, 3 * px2),
         "shift_gather": bound(16 * px, 10 * px),
-        "fgs_pass": bound(20 * px, (2 * 16 * rounds + 30) * px),
+        "fgs_pass": bound(20 * px, 23 * px),
     }
     for name, (ms, plain_ms, lib_ms) in times.items():
         lib = f", torch.gather {lib_ms:.3f} ms" if lib_ms else ""
@@ -1193,6 +1232,115 @@ def phase_shared_path(card, errs, frames, stacked):
     return launches, times, bounds, pipe
 
 
+def phase_configs(card, errs, frames):
+    """Configurations the three paths do not run, each held to its plain
+    version: K1 at blocks 1, 3, 7, 9 and 11 on one 720x1280x128 frame
+    (timed); StereoPipeline at the reference's own defaults (downscale 2,
+    80 disparities, speckle 200/2, right matcher, WLS) on BGR frames with
+    remap_precision="f32", and with lr_mode="none" and no WLS, each output
+    against the plain chain on the pipeline's rectified frames; then the
+    stress shape 2560x1440x256 on one frame: K1-K3 against plain, and the
+    fused and the staged matcher (speckle 200/2) agreeing."""
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls as wplain
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    from stereo_depth_ruler_tpu_torch.pipeline import (
+        PipelineConfig, StereoPipeline, downscale2x)
+    H, W, D = KERNEL_SHAPES[-1]
+    left, right = _pair(H, W, D // 3, seed=11)
+    lt = plain.sobel_clip(torch.tensor(left, device=DEVICE), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=DEVICE), 63)
+    for block in (1, 3, 7, 9, 11):
+        params = SGBMParams(num_disparities=D, block_size=block,
+                            speckle_window_size=0)
+        C = sc.cost_volume(lt, rt, params)
+        torch.cuda.synchronize()
+        e = max_abs_err(C, plain.cost_volume(lt, rt, params))
+        errs["cost_box"] = max(errs["cost_box"], e)
+        ms = cuda_ms(lambda: sc.cost_volume(lt, rt, params), 5)
+        log(f"configs [{card}]: K1 block {block} at 1x{H}x{W}x{D}: max|err| "
+            f"vs plain {e}, kernel {ms:.3f} ms")
+        if e:
+            raise AssertionError(f"K1 differs from plain at block {block}")
+        del C
+    torch.cuda.empty_cache()
+
+    rig, lefts, rights, _ = frames
+    n, (H, W) = 2, lefts.shape[1:]
+
+    def bgr(x):   # uint8 BGR frames whose channels differ
+        x = x[:n].astype(np.float32)
+        return np.clip(np.stack([0.8 * x, x, 1.1 * x + 3.0], axis=-1), 0,
+                       255).astype(np.uint8)
+
+    for tag, cfg in (
+            ("reference defaults, BGR, f32 remap",
+             PipelineConfig(remap_precision="f32")),
+            ("downscale 2, BGR, lr_mode none, no WLS",
+             PipelineConfig(use_wls=False, lr_mode="none"))):
+        pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
+        out, launches, _, batch_ms = drive(pipe, bgr(lefts), bgr(rights),
+                                           [sc, wc])
+        params = cfg.sgbm
+        left = downscale2x(out["left_rectified"])
+        right = downscale2x(out["right_rectified"])
+        if cfg.use_wls:
+            dl, dr = plain.compute_disparity_pair(left, right, params)
+            want, conf = wplain.wls_disparity_filter(
+                dl, dr, left,
+                max_disp=params.num_disparities + params.min_disparity)
+        else:
+            want = plain.sgbm(left, right, params, apply_lr=False)
+            conf = (want >= 0).to(torch.float32)
+        ok = (tuple(out["disparity"].shape) == (n, H // 2, W // 2)
+              and torch.equal(out["disparity"], want)
+              and torch.equal(out["confidence"], conf)
+              and bool(torch.isfinite(out["disparity"]).all()))
+        ran = sorted(k for k, v in launches.items() if v)
+        log(f"configs [{card}]: pipeline, {tag}: {n} frames "
+            f"{W}x{H} -> {tuple(out['disparity'].shape)}, equal to the plain "
+            f"chain: {ok}, valid {float((want >= 0).float().mean()):.4f}, "
+            f"{batch_ms:.2f} ms per batch; kernels {ran}")
+        expect = FULL_PATH if cfg.use_wls else FULL_PATH - {"fgs_pass",
+                                                             "shift_gather"}
+        if not ok or set(ran) != expect:
+            raise AssertionError(f"the pipeline ({tag}) differs from its "
+                                 f"plain chain, or ran {ran}")
+        del pipe, out, want, conf
+    torch.cuda.empty_cache()
+
+    H, W, D = STRESS
+    params = SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=0)
+    left, right = _pair(H, W, 77, seed=5)
+    lt = plain.sobel_clip(torch.tensor(left, device=DEVICE), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=DEVICE), 63)
+    C, S = check_kernels(lt, rt, params, errs)
+    del C, S
+    torch.cuda.empty_cache()
+    params = SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=200, speckle_range=2)
+    l, r = torch.tensor(left, device=DEVICE), torch.tensor(right,
+                                                           device=DEVICE)
+    fused = sc.sgbm_cuda(l, r, params)
+    staged = sc.sgbm_staged_cuda(l, r, params)
+    torch.cuda.synchronize()
+    ms = (cuda_ms(lambda: sc.sgbm_cuda(l, r, params), 2),
+          cuda_ms(lambda: sc.sgbm_staged_cuda(l, r, params), 2))
+    log(f"configs [{card}]: stress 1x{H}x{W}x{D}, speckle 200/2: fused and "
+        f"staged maps equal: {torch.equal(fused, staged)} (valid "
+        f"{float((fused >= 0).float().mean()):.4f}); fused {ms[0]:.3f} ms, "
+        f"staged {ms[1]:.3f} ms per frame")
+    if not torch.equal(fused, staged):
+        raise AssertionError("the fused and the staged chain differ at the "
+                             "stress shape")
+    del fused, staged
+    torch.cuda.empty_cache()
+
+
 def profile_path(card, pipe, frames, reps=3):
     """Device time by kernel over ``reps`` batches of the path, and the
     share of the wall time the device was busy (one stream, so the sum of
@@ -1249,6 +1397,9 @@ def main():
                                                          stacked)
     del stacked
     profile_path(card, pipe, frames)
+    del pipe
+    torch.cuda.empty_cache()
+    phase_configs(card, errs, frames)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})

@@ -279,9 +279,13 @@ def lr_check(S: torch.Tensor, disp: torch.Tensor, valid: torch.Tensor,
              params: SGBMParams, mirror_lr: bool = False) -> torch.Tensor:
     """Consistency check against the right-view disparity built from the
     per-column WTA winners of the same volume (``sgbm_ref.lr_check_np``),
-    read at x - round(disp) (x + round(disp) with ``mirror_lr``)."""
+    read at x - round(disp) (x + round(disp) with ``mirror_lr``). Needs
+    min_disparity >= 0, as the jnp matcher's winner scatter does."""
     if params.disp12_max_diff < 0:
         return valid
+    if params.min_disparity < 0:
+        raise ValueError("the LR check needs min_disparity >= 0, got "
+                         f"{params.min_disparity}")
     D, W = S.shape[-1], S.shape[-2]
     d_star = torch.argmin(S, dim=-1).to(torch.int32)
     s0i = S.amin(dim=-1).to(torch.int32)            # exact small ints

@@ -80,7 +80,12 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_params(params: SGBMParams) -> None:
+def _check_params(params: SGBMParams, *tensors: torch.Tensor) -> None:
+    """The kernels' limits on the parameters, applied only where the
+    inputs are CUDA tensors: the plain versions run whatever the JAX
+    package's jnp matcher runs."""
+    if not kernels.on_cuda(*tensors):
+        return
     if params.min_disparity < 0:
         raise ValueError("min_disparity < 0 is not supported "
                          "(the TPU kernel asserts the same)")
@@ -350,7 +355,7 @@ def cost_down(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
     int16: K1's cost volume and the sum of the down-going passes over it
     (``plain.down_dirs``), from one kernel. Raises ValueError where the sum
     could pass int16."""
-    _check_params(params)
+    _check_params(params, lt, rt)
     n_dirs = len(plain.down_dirs(params.num_paths))
     _check_i16(path_sum_bound(params, n_dirs), "cost_down")
     if not kernels.on_cuda(lt, rt):
@@ -446,7 +451,7 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
     ``cost_down``, two horizontal and one or three up-going passes into
     int16 partial sums, ``wta_lr3``, then the speckle filter. Needs 4 or 8
     paths and partial sums that fit int16 (ValueError otherwise)."""
-    _check_params(params)
+    _check_params(params, left, right)
     if params.num_paths < 4:
         raise ValueError("the staged chain needs 4 or 8 paths, got "
                          f"{params.num_paths}")
@@ -460,18 +465,18 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
 
 
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
-              params: SGBMParams = SGBMParams(),
-              apply_lr: bool = True) -> torch.Tensor:
+              params: SGBMParams = SGBMParams(), apply_lr: bool = True,
+              apply_speckle: bool = True) -> torch.Tensor:
     """(B, H, W) float32 pair -> (B, H, W) float32 disparity, invalid -1.0:
-    WTA and the LR check, then the speckle filter when
-    ``speckle_window_size > 0``."""
-    _check_params(params)
+    WTA and the LR check, then, with ``apply_speckle``, the speckle filter
+    when ``speckle_window_size > 0``."""
+    _check_params(params, left, right)
     lt, rt = _sobel_pair(left, right, params)
     C = cost_volume(lt, rt, params)
     S = aggregate(C, params)
     disp = wta_lr(S, params, apply_lr)
     del C, S
-    return _speckle(disp, params)
+    return _speckle(disp, params) if apply_speckle else disp
 
 
 def _sobel_pair(left: torch.Tensor, right: torch.Tensor, params: SGBMParams
@@ -502,7 +507,7 @@ def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
     speckle filter on all 2B maps. Bitwise equal to ``sgbm_cuda`` on the
     stacked pair (the right matcher on mirrored, swapped frames, flipped
     back) at every width."""
-    _check_params(params)
+    _check_params(params, left, right)
     if params.min_disparity != 0:
         raise ValueError("the shared-cost pair needs min_disparity 0, got "
                          f"{params.min_disparity}")

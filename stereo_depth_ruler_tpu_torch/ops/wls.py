@@ -1,12 +1,22 @@
 """Edge-preserving WLS disparity filter (Fast Global Smoother) in plain
 PyTorch — the plain versions of the FGS-pass and shift-gather kernels.
 
-Port of ``stereo_depth_ruler_tpu/ops/wls.py`` op for op: each FGS
-iteration solves the tridiagonal systems (I + λ_t A_w) u = f along rows,
-then along columns, with weights w = exp(-|Δguide| / σ), by parallel cyclic
-reduction and one step of iterative refinement; λ_t = 1.5 λ 4^(T-t-1) /
+Port of ``stereo_depth_ruler_tpu/ops/wls.py``: each FGS iteration solves
+the tridiagonal systems (I + λ_t A_w) u = f along rows, then along
+columns, with weights w = exp(-|Δguide| / σ); λ_t = 1.5 λ 4^(T-t-1) /
 (4^T - 1). The confidence-weighted filter solves the stacked right-hand
 sides (conf·disp, conf) and divides, so low-confidence pixels are inpainted.
+
+The JAX package solves the systems by parallel cyclic reduction with one
+refinement step (``tridiag_solve`` here is its counterpart), which suits a
+TPU's elementwise rounds. The sweep ``fgs_pass`` instead runs the
+sequential Thomas recurrence (``thomas_solve``), from both ends of a line
+towards its middle, which is how a GPU solves many independent lines: a
+few threads per line, each a chain of N / 2 steps. The systems are
+strictly diagonally dominant, so it needs neither pivoting nor
+refinement. The two
+solves differ in the last bits; the filter stays within the JAX package's
+WLS bound of its jnp and Pallas filters (tests/test_torch_wls.py).
 
 Shapes carry a batch: right-hand sides (..., R, H, W) with one guide
 (..., H, W) for the R planes. The LR confidence gathers the right view
@@ -21,7 +31,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["tridiag_solve", "fgs_filter", "fgs_pass", "shift_gather",
+__all__ = ["tridiag_solve", "thomas_solve", "fgs_filter", "fgs_pass", "shift_gather",
            "shift_gather_conf", "filtered_disparity", "wls_disparity_filter",
            "fgs_lambdas"]
 
@@ -80,6 +90,55 @@ def tridiag_solve(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return u
 
 
+def thomas_solve(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 d: torch.Tensor) -> torch.Tensor:
+    """Solve tridiagonal systems along the last axis by the Thomas
+    recurrence run from both ends towards the middle element m = N // 2
+    (a twisted factorization): a sub-, b main, c super-diagonal (a[..., 0]
+    and c[..., -1] are not read), d the right-hand side; a, b, c broadcast
+    against d and are eliminated once for all of d's planes. Needs diagonal
+    dominance (true of the FGS systems).
+
+    Top, i = 0 .. m-1:  r = 1 / (b - a c'),   c' = c r,  d' = (d - a d') r.
+    Bottom, i = N-1 .. m+1:  r = 1 / (b - c a''),  a'' = a r,
+    d'' = (d - c d'') r.  Then x[m] = ((d - a d') - c d'') / ((b - a c')
+    - c a'') at m, and x[i] = d'[i] - c'[i] x[i+1] below it, x[i] =
+    d''[i] - a''[i] x[i-1] above. Each half is a sequential chain of N / 2
+    steps: the FGS-pass kernel runs the two halves on two threads. The
+    plain version of the kernel's solve: every product and difference is
+    rounded on its own and each reciprocal is an IEEE division of a tensor
+    of ones, as the kernel does."""
+    N = d.shape[-1]
+    m = N // 2
+    zc = torch.zeros_like(b[..., 0])
+    zd = torch.zeros_like(d[..., 0])
+
+    def recip(x):
+        return torch.ones_like(x) / x
+
+    ct, pt, top = zc, zd, []
+    for i in range(m):
+        ai = a[..., i]
+        r = recip(b[..., i] - ai * ct)
+        ct, pt = c[..., i] * r, (d[..., i] - ai * pt) * r
+        top.append((ct, pt))
+    cb, pb, bottom = zc, zd, {}
+    for i in range(N - 1, m, -1):
+        ci = c[..., i]
+        r = recip(b[..., i] - ci * cb)
+        cb, pb = a[..., i] * r, (d[..., i] - ci * pb) * r
+        bottom[i] = (cb, pb)
+    am, cm = a[..., m], c[..., m]
+    x = [None] * N
+    x[m] = (((d[..., m] - am * pt) - cm * pb)
+            * recip((b[..., m] - am * ct) - cm * cb))
+    for i in range(m - 1, -1, -1):
+        x[i] = top[i][1] - top[i][0] * x[i + 1]
+    for i in range(m + 1, N):
+        x[i] = bottom[i][1] - bottom[i][0] * x[i - 1]
+    return torch.stack(x, dim=-1)
+
+
 def _fgs_pass_lastaxis(u: torch.Tensor, guide: torch.Tensor, lam: float,
                        sigma: float) -> torch.Tensor:
     """One FGS sweep with the systems along the last axis."""
@@ -87,20 +146,20 @@ def _fgs_pass_lastaxis(u: torch.Tensor, guide: torch.Tensor, lam: float,
     # a tensor divisor: PyTorch's CUDA division by a Python scalar is a
     # multiplication by its reciprocal, not IEEE division
     w = torch.exp(-diff / torch.full_like(diff, sigma))  # weight i to i+1
-    zero = torch.zeros_like(w[..., :1])
+    zero = w.new_zeros(w.shape[:-1] + (1,))   # also for a 1-element line
     w_r = torch.cat([w, zero], dim=-1)
     w_l = torch.cat([zero, w], dim=-1)
     a = -lam * w_l
     c = -lam * w_r
     b = 1.0 + lam * (w_l + w_r)
-    return tridiag_solve(a, b, c, u)
+    return thomas_solve(a, b, c, u)
 
 
 def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
              axis: int) -> torch.Tensor:
     """One FGS sweep of the (..., R, H, W) right-hand sides under the
-    (..., H, W) guide, along rows (axis -1) or columns (axis -2): the plain
-    version of the FGS-pass kernel."""
+    (..., H, W) guide, along rows (axis -1) or columns (axis -2), by
+    ``thomas_solve``: the plain version of the FGS-pass kernel."""
     g = guide.unsqueeze(-3) if guide.dim() < u.dim() else guide
     if axis == -1:
         return _fgs_pass_lastaxis(u, g, lam, sigma)

@@ -7,8 +7,9 @@ wls_disparity_filter_pallas``:
   disparity at x - round(dl), the LR confidence, and the stacked
   right-hand sides (conf·max(dl, 0), conf), in one pass;
 - K6 ``fgs_pass`` (csrc/fgs_pass.cu): one FGS sweep, rows or columns, of
-  both right-hand sides: weights, tridiagonal coefficients, PCR and one
-  refinement solve. Six launches per filter (3 iterations x 2 axes).
+  both right-hand sides: weights, tridiagonal coefficients and the
+  Thomas solve from both ends of each line, a thread per half line and
+  right-hand side. Six launches per filter (3 iterations x 2 axes).
 
 Each wrapper dispatches on the device of its input: a CPU tensor gets the
 plain version of ``ops/wls.py``; a CUDA tensor launches the kernel or
@@ -75,8 +76,9 @@ def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
     if axis not in (-1, -2):
         raise ValueError(f"axis must be -1 or -2, got {axis}")
     out = torch.empty_like(u)
+    cp = torch.empty_like(guide)   # the elimination's c' and a''
     rc = kernels.load().sdr_fgs_pass(guide.data_ptr(), u.data_ptr(),
-                                     out.data_ptr(), B, H, W,
+                                     out.data_ptr(), cp.data_ptr(), B, H, W,
                                      int(axis == -1), float(lam),
                                      float(sigma), kernels.stream())
     kernels.check(rc, "fgs_pass")

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card, bitwise (the
-FGS pass too: its plain version divides as IEEE division does). The sort
-family's plain sorts are torch.sort(stable=True), which the radix sort
-matches in values as well as keys, being stable too.
+FGS pass too: its plain version, the Thomas solve, divides as IEEE
+division does). The sort family's plain sorts are
+torch.sort(stable=True), which the radix sort matches in values as well
+as keys, being stable too.
 
 Marked ``cuda``: they need a CUDA card and nvcc, and skip without them.
 The file needs nothing from tests/conftest.py (which imports JAX), so on a
@@ -71,6 +72,57 @@ def test_kernels_match_plain(cuda, H, W, kw):
         got = sc.wta_lr(S, params, apply_lr)
         torch.cuda.synchronize()
         assert torch.equal(got, plain.wta_lr(S_p, params, apply_lr))
+
+
+@pytest.mark.parametrize("H,W,D,md", [
+    (3, 20, 16, 0),        # H below most blocks, W below one column tile
+    (130, 100, 16, 3),     # H not a multiple of the row strip, ragged W
+    (70, 45, 256, 0),      # two strips, ragged W, the widest D
+    (2, 300, 256, 3),
+])
+@pytest.mark.parametrize("block", [1, 3, 5, 7, 9, 11])
+def test_cost_box_every_block_matches_plain(cuda, block, H, W, D, md):
+    """K1 (the row-sliding box) against ops/sgbm.py:cost_volume, bitwise,
+    at every block size, with strips, tiles and the clamped rows and
+    columns at every border."""
+    params = SGBMParams(num_disparities=D, min_disparity=md,
+                        block_size=block, speckle_window_size=0)
+    left, right = pair(H, W, D, seed=H + W + block)
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    C = sc.cost_volume(lt, rt, params)
+    torch.cuda.synchronize()
+    assert C.dtype == torch.int16
+    assert torch.equal(C.float(), plain.cost_volume(lt, rt, params))
+
+
+@pytest.mark.parametrize("N", [1, 2, 3, 720, 1280, 7168])
+def test_fgs_pass_any_length(cuda, N):
+    """K6 (the Thomas recurrence from both ends of each line) against its
+    plain version, bitwise, along rows (lines of N) and columns (lines of
+    N), on a random and a step-edge guide."""
+    rng = np.random.default_rng(N)
+    for H, W, axis in ((5, N, -1), (N, 5, -2)):
+        rhs = torch.tensor(rng.uniform(0, 64, (2, 2, H, W)).astype(np.float32),
+                           device=cuda)
+        step = np.zeros((2, H, W), np.float32)
+        step[:, :, W // 2:] += 255.0
+        step[:, H // 2:, :] += 28.0
+        for g in (rng.uniform(0, 255, (2, H, W)).astype(np.float32), step):
+            guide = torch.tensor(g, device=cuda)
+            for lam in wplain.fgs_lambdas(8000.0, 3):
+                got = wc.fgs_pass(rhs, guide, lam, 1.1, axis)
+                torch.cuda.synchronize()
+                assert torch.equal(got, wplain.fgs_pass(rhs, guide, lam, 1.1,
+                                                        axis))
+
+
+def test_kernel_limits_hold_on_cuda(cuda):
+    """The kernels' parameter limits, which the CPU path does not have."""
+    left, right = (torch.tensor(a, device=cuda) for a in pair(16, 64, 8, 1))
+    for kw in (dict(num_disparities=40), dict(min_disparity=-1)):
+        with pytest.raises(ValueError):
+            sc.sgbm_cuda(left, right, SGBMParams(**kw))
 
 
 @pytest.mark.parametrize("H,W,kw", [

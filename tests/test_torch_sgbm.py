@@ -149,7 +149,7 @@ def test_sgbm_cuda_cpu_batch_vs_jnp():
 def test_speckle_and_negative_min_disparity_raise(imgs):
     """The speckle filter runs (default window 200, range 2), in the plain
     matcher and in the kernel matcher's CPU path alike; a negative
-    min_disparity is refused by the kernel matcher."""
+    min_disparity with the LR check is refused, as by the jnp matcher."""
     left, right = T(imgs[0]), T(imgs[1])
     params = SGBMParams(num_disparities=16)
     got = ts.sgbm(left, right, params)
