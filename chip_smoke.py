@@ -31,7 +31,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    none of K1-K3; its map equal to sgbm_cuda's and to the slice-1 path's;
    cost_down's C equal to K1's and its sum to three K2 passes; the three
    kernels against their plain versions on the full batch, timed, the two
-   chains timed in turns, and their peak memory; then a counted run of
+   chains timed in turns at batch 8 and on one frame pair (their maps
+   equal at both), and their peak memory; then a counted run of
    the stage profiler (tools/profile_stages_torch.py), which launches the
    three volume transposes, and the transposes on one frame's volume
    ((128, 720, 1280), int16, int32 and bfloat16) against
@@ -53,7 +54,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    them against its plain version, bitwise: the sweep's labels mode at
    1, 2 and 3 rounds and converged (equal to K4) on the maps and the
    720x1280 serpentine, its propagate mode, the sorts against
-   torch.sort(stable=True) on 16 x 2^20 keys, the run modes, the
+   torch.sort(stable=True) on 16 x 2^20 keys, on the unpadded labels (the
+   top digit constant, its pass skipped; timed beside), the run modes, the
    compositions, the seeded keep against K5's; then times (kernel,
    plain, torch.sort for the sorts) and bounds;
 8. shared path: the full path's configuration with pair_mode="shared"
@@ -237,11 +239,16 @@ def phase_build():
     log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
                                  for name, _, n, sp in entries
                                  if name == "fgs_pass_kernel"))
+    # cost_down at every <BLOCK, words per lane>; registers are capped, so
+    # the spills are what to watch (<5,2> is the timed 128-disparity one)
+    log("ptxas: cost_down_kernel by <block,words>: " + ", ".join(
+        f"<{t}>: {n} registers, {sp} B spilled"
+        for name, t, n, sp in entries if name == "cost_down_kernel"))
     # the matcher kernels at 128 disparities (4 per lane): K2 and K3 as the
     # three paths run them, and the staged chain's beside them
     d128 = re.findall(
         r"entry function '\w*?\d+(sgm_pass_kernel|sgm_pass_i16_kernel|"
-        r"wta_lr_kernel|wta_lr3_kernel|cost_down_kernel)ILi4E(?:Lb([01])E)?"
+        r"wta_lr_kernel|wta_lr3_kernel)ILi4E(?:Lb([01])E)?"
         r"\w*'[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers", ptxas)
     log("ptxas: at 4 disparities per lane: " + ", ".join(
         f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
@@ -249,8 +256,9 @@ def phase_build():
 
 
 def ptxas_entries(ptxas):
-    """(kernel name, first template integer or '', registers, spill-store
-    bytes) of every kernel entry in an nvcc -Xptxas -v report."""
+    """(kernel name, its leading template integers joined by ',' or '',
+    registers, spill-store bytes) of every kernel entry in an nvcc -Xptxas
+    -v report."""
     out = []
     for chunk in ptxas.split("Compiling entry function '")[1:]:
         head = chunk.split("'", 1)[0]
@@ -265,8 +273,9 @@ def ptxas_entries(ptxas):
                 if name.endswith("_kernel"):
                     found = found or (name, m.end() + len(name))
         if found and n:
-            t = re.match(r"ILi(\d+)E", head[found[1]:])
-            out.append((found[0], t.group(1) if t else "", int(n.group(1)),
+            t = re.match(r"I((?:Li\d+E)+)", head[found[1]:])
+            ints = ",".join(re.findall(r"\d+", t.group(1))) if t else ""
+            out.append((found[0], ints, int(n.group(1)),
                         int(sp.group(1)) if sp else 0))
     return out
 
@@ -780,6 +789,26 @@ def phase_staged_chain(card, errs, rect):
         log(f"A/B [{card}]: matcher alone, batch {B}, {chain} chain: "
             f"{ms:.3f} ms per call (turns {', '.join(f'{x:.3f}' for x in t)})"
             f", peak memory {pk / 2**30:.2f} GiB")
+    # one frame pair: the latency a single pair pays in each chain
+    l1, r1 = left[:1].contiguous(), right[:1].contiguous()
+    if not torch.equal(sc.sgbm_staged_cuda(l1, r1, params),
+                       sc.sgbm_cuda(l1, r1, params)):
+        raise AssertionError("sgbm_staged_cuda differs from sgbm_cuda at "
+                             "batch 1")
+    ab = in_turns_ms([lambda: sc.sgbm_cuda(l1, r1, params),
+                      lambda: sc.sgbm_staged_cuda(l1, r1, params)])
+    for chain, t in zip(("fused", "staged"), ab):
+        log(f"A/B [{card}]: matcher alone, batch 1, {chain} chain: "
+            f"{sum(t) / len(t):.3f} ms per call (turns "
+            f"{', '.join(f'{x:.3f}' for x in t)}); maps equal")
+    log(f"staged chain [{card}]: cost_down at 1x{H}x{W}x{D}: "
+        f"{cuda_ms(lambda: sc.cost_down(lt[:1], rt[:1], params), 3):.3f} ms")
+    # twice the batch: as many frames as the full path stacks (left and
+    # right), more than are resident at once
+    l2, r2 = torch.cat([lt, lt]), torch.cat([rt, rt])
+    log(f"staged chain [{card}]: cost_down at {2 * B}x{H}x{W}x{D}: "
+        f"{cuda_ms(lambda: sc.cost_down(l2, r2, params), 3):.3f} ms")
+    del l2, r2
 
     P1, P2 = float(params.P1), float(params.P2)
     sums = ([(0, 1), (0, -1)], plain.up_dirs(params.num_paths))
@@ -1008,6 +1037,16 @@ def phase_sort_family(card, errs, maps, r, ws):
         hold("radix_sort_pairs", got[1], torch.gather(
             v.reshape(B, -1), 1, idx).reshape(key.shape))
     sidx = got[1]
+    # the labels unpadded (all below 2^20): the top digit is the same in
+    # every key, and the sort skips its pass
+    flat = labels.reshape(B, -1).contiguous()
+    want, idx = torch.sort(flat, stable=True)
+    pos_flat = splain.positions(flat)
+    hold("radix_sort_keys", soc.sort_keys(flat), want)
+    got = soc.sort_pairs(flat, pos_flat)
+    hold("radix_sort_pairs", got[0], want)
+    hold("radix_sort_pairs", got[1], torch.gather(pos_flat, 1, idx))
+    del want, idx, got
     hold("sorted_runs_sizes", soc.run_sizes(skey), splain.run_sizes(skey))
     hold("sorted_runs_sizes", soc.run_sizes(skey, sidx, n),
          splain.run_sizes(skey, sidx, n))
@@ -1086,6 +1125,15 @@ def phase_sort_family(card, errs, maps, r, ws):
         "sorted_runs_keep": bound(8 * keys + B * n, 6 * steps * keys),
         "sorted_runs_roots": bound(4 * keys + 4 * B * R * slots, 4 * keys),
     }
+    log(f"sort family [{card}]: radix sort of {B}x{n2} unpadded labels "
+        f"(top pass skipped): keys {cuda_ms(lambda: soc.sort_keys(flat), 5):.3f} ms, pairs "
+        f"{cuda_ms(lambda: soc.sort_pairs(flat, pos_flat), 5):.3f} ms, "
+        f"torch.sort(stable=True) "
+        f"{cuda_ms(lambda: torch.sort(flat, stable=True), 5):.3f} ms")
+    log(f"sort family [{card}]: the capped speckle_filter (3 rounds) at "
+        f"{B}x{H}x{W}: "
+        f"{cuda_ms(lambda: sc.speckle_filter(dm, ws, r, max_iters=3), 5):.3f}"
+        f" ms per call")
     for name, (ms, plain_ms, lib_ms) in times.items():
         lib = (f", torch.sort(stable=True) {lib_ms:.3f} ms"
                if lib_ms is not None else "")

@@ -44,7 +44,8 @@ from .sgbm_ref import SGBMParams
 
 __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "cost_volume", "directional_pass", "aggregate_paths", "wta",
-           "lr_check", "wta_lr", "speckle_labels", "speckle_keep",
+           "lr_check", "wta_lr", "wta_lr_speckle", "speckle_labels",
+           "speckle_keep",
            "propagate_keep", "speckle_keep_seeded", "speckle_filter", "sgbm",
            "compute_disparity_pair", "cost_volume_pair", "sgbm_pair",
            "down_dirs", "up_dirs", "cost_down", "wta_lr3", "sgbm_staged",
@@ -473,6 +474,15 @@ def sgbm(left: torch.Tensor, right: torch.Tensor,
     cap = params.pre_filter_cap
     C = cost_volume(sobel_clip(left, cap), sobel_clip(right, cap), params)
     S = aggregate_paths(C, params.P1, params.P2, params.num_paths)
+    return wta_lr_speckle(S, params, apply_lr, apply_speckle)
+
+
+def wta_lr_speckle(S: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
+                   apply_speckle: bool = True) -> torch.Tensor:
+    """The matcher's tail on a path sum S: ``wta``, ``lr_check``, then the
+    speckle filter on their validity mask, -1.0 where invalid. The filter
+    is told validity by the mask, not by disp >= 0: with a negative
+    min_disparity a valid disparity can be negative."""
     disp, valid = wta(S, params)
     if apply_lr:
         valid = lr_check(S, disp, valid, params)
@@ -573,7 +583,9 @@ def sgbm_staged(left: torch.Tensor, right: torch.Tensor,
                 params: SGBMParams = SGBMParams(), apply_lr: bool = True,
                 apply_speckle: bool = True) -> torch.Tensor:
     """``sgbm`` by the staged chain: Sobel, ``cost_down``, the horizontal
-    sum, the up-going sum, ``wta_lr3``, then the speckle filter. Needs 4
+    sum, the up-going sum, then ``wta_lr_speckle`` on their sum (what
+    ``wta_lr3`` computes, with the validity mask kept for the speckle
+    filter). Needs 4
     or 8 paths; equal to ``sgbm`` bit for bit (integer path values)."""
     if params.num_paths < 4:
         raise ValueError("the staged chain needs 4 or 8 paths, got "
@@ -583,8 +595,5 @@ def sgbm_staged(left: torch.Tensor, right: torch.Tensor,
                           params)
     S_h = _sum_passes(C, [(0, 1), (0, -1)], params)
     S_up = _sum_passes(C, up_dirs(params.num_paths), params)
-    disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
-    if apply_speckle and params.speckle_window_size > 0:
-        disp = speckle_keep(disp, speckle_labels(disp, params.speckle_range),
-                            params.speckle_window_size)
-    return disp
+    return wta_lr_speckle(S_down + S_up + S_h, params, apply_lr,
+                          apply_speckle)

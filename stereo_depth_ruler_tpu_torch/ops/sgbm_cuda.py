@@ -369,10 +369,11 @@ def cost_down(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
     D = params.num_disparities
     C = torch.empty((B, H, W, D), dtype=torch.int16, device=lt.device)
     S3 = torch.empty_like(C)
-    # the L rows of the previous and the current image row, per direction
-    scratch = torch.empty((2, 3, B, W, D), dtype=torch.int16,
-                          device=lt.device)
-    rc = kernels.load().sdr_cost_down(
+    lib = kernels.load()
+    # the strips' edge columns and row counters
+    scratch = torch.zeros(lib.sdr_cost_down_scratch_size(B, W, D),
+                          dtype=torch.int16, device=lt.device)
+    rc = lib.sdr_cost_down(
         lt.data_ptr(), rt.data_ptr(), C.data_ptr(), S3.data_ptr(),
         scratch.data_ptr(), B, H, W, D, params.min_disparity,
         params.block_size, params.P1, params.P2, n_dirs, kernels.stream())
@@ -459,6 +460,10 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
     C, S_down = cost_down(lt, rt, params)
     S_h = aggregate_i16(C, params, [(0, 1), (0, -1)])
     S_up = aggregate_i16(C, params, plain.up_dirs(params.num_paths))
+    if not kernels.on_cuda(C):
+        return plain.wta_lr_speckle(S_down.float() + S_up.float()
+                                    + S_h.float(), params, apply_lr,
+                                    apply_speckle)
     disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
     del C, S_down, S_h, S_up
     return _speckle(disp, params) if apply_speckle else disp
@@ -469,11 +474,14 @@ def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
               apply_speckle: bool = True) -> torch.Tensor:
     """(B, H, W) float32 pair -> (B, H, W) float32 disparity, invalid -1.0:
     WTA and the LR check, then, with ``apply_speckle``, the speckle filter
-    when ``speckle_window_size > 0``."""
+    when ``speckle_window_size > 0``, told validity by the WTA/LR mask."""
     _check_params(params, left, right)
     lt, rt = _sobel_pair(left, right, params)
     C = cost_volume(lt, rt, params)
     S = aggregate(C, params)
+    if not kernels.on_cuda(S):
+        return plain.wta_lr_speckle(S.float(), params, apply_lr,
+                                    apply_speckle)
     disp = wta_lr(S, params, apply_lr)
     del C, S
     return _speckle(disp, params) if apply_speckle else disp
@@ -490,6 +498,11 @@ def _sobel_pair(left: torch.Tensor, right: torch.Tensor, params: SGBMParams
 
 
 def _speckle(disp: torch.Tensor, params: SGBMParams) -> torch.Tensor:
+    """The speckle filter with disp >= 0 as the validity mask: right on
+    CUDA maps (the kernels refuse a negative min_disparity) and for the
+    pair (min_disparity 0). ``sgbm_cuda`` and ``sgbm_staged_cuda`` on CPU
+    tensors take ``plain.wta_lr_speckle`` instead, which keeps the WTA/LR
+    mask, so valid negative disparities survive there."""
     if params.speckle_window_size > 0:
         labels = speckle_labels(disp, params.speckle_range)
         disp = speckle_keep(disp, labels, params.speckle_window_size)

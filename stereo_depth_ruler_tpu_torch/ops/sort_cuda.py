@@ -69,15 +69,18 @@ def _radix_sort(key: torch.Tensor, val: Optional[torch.Tensor]):
                              f"{tuple(val.shape)}")
         _frames(val, "val")
         sval, tval = torch.empty_like(val), torch.empty_like(val)
-    hist = torch.empty((B, lib.sdr_radix_hist_size(N)), dtype=torch.int32,
-                       device=key.device)
+    n_scratch = lib.sdr_radix_scratch_size(B, N)
+    if n_scratch < 0:
+        raise ValueError(f"radix sort: no sort of {B} x {N} keys")
+    # digit histograms, pass flags, tile counters and look-back status
+    scratch = torch.zeros(n_scratch, dtype=torch.int32, device=key.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     rc = lib.sdr_radix_sort(key.data_ptr(), ptr(val), skey.data_ptr(),
                             ptr(sval), tkey.data_ptr(), ptr(tval),
-                            hist.data_ptr(), B, N, kernels.stream())
+                            scratch.data_ptr(), B, N, kernels.stream())
     name = "radix_sort_keys" if val is None else "radix_sort_pairs"
     kernels.check(rc, name)
     LAUNCHES[name] += 1

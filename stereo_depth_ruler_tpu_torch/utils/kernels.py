@@ -48,9 +48,12 @@ _SIGNATURES = {
     "sdr_sgm_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # C, S (int16), B, H, W, D, dy, dx, P1, P2, acc, stream
     "sdr_sgm_pass_i16": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # lt, rt, C, S3, Lbuf, B, H, W, D, md, block, P1, P2, ndir, stream
+    # lt, rt, C, S3, scratch, B, H, W, D, md, block, P1, P2, ndir, stream
     "sdr_cost_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P],
+    # B, W, D -> int16 entries of zeroed scratch that sdr_cost_down needs
+    # (a long long)
+    "sdr_cost_down_scratch_size": [_I, _I, _I],
     # Sd, Su, Sh, out, B, H, W, D, md, uniq, quant16, disp12, apply_lr,
     # stream
     "sdr_wta_lr3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -74,14 +77,18 @@ _SIGNATURES = {
     # disp or labels, seed (null: labels mode), out, flags, B, H, W,
     # max_diff, max_iters, stream
     "sdr_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    # key_in, val_in, key_out, val_out, key_tmp, val_tmp, hist, B, N, stream
-    # (val pointers null: keys only)
+    # key_in, val_in, key_out, val_out, key_tmp, val_tmp, scratch, B, N,
+    # stream (val pointers null: keys only)
     "sdr_radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # N -> int32 histogram entries per frame that sdr_radix_sort needs
-    "sdr_radix_hist_size": [_I],
+    # B, N -> int32 entries of zeroed scratch that sdr_radix_sort needs
+    # (a long long; -1 for bad arguments)
+    "sdr_radix_scratch_size": [_I, _I],
     # skey, sidx, out, B, N, n_out, mode, max_size, L, slots, stream
     "sdr_sorted_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+
+_RESTYPES = {"sdr_radix_scratch_size": ctypes.c_longlong,
+             "sdr_cost_down_scratch_size": ctypes.c_longlong}
 
 _lib = None
 
@@ -145,7 +152,7 @@ def load():
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         lib.sdr_error_string.argtypes = [ctypes.c_int]
         lib.sdr_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -259,12 +259,17 @@ def test_sweep_kernel_matches_plain(cuda, case):
         assert torch.equal(keep, sc.speckle_keep(disp, labels, max_size) >= 0)
 
 
-@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid"])
+@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid",
+                                  "one_component"])
 def test_sort_kernels_match_plain(cuda, case):
     """The radix sort (keys, pairs) and the sorted-run kernel (sizes, keep,
     roots) on the packed labels of a map, and the functions built on them,
-    bitwise against their plain versions."""
-    disp = speckle_map(case)
+    bitwise against their plain versions. One component: every label 0,
+    then INF pads."""
+    if case == "one_component":
+        disp = torch.full((2, 40, 64), 3.0, device=cuda)
+    else:
+        disp = speckle_map(case)
     labels = sc.speckle_labels(disp, 1.0)
     key, n, n2, L, R = sortp.pack_batched(labels)
     skey = sort_cuda.sort_keys(key)
@@ -299,22 +304,41 @@ def test_sort_kernels_match_plain(cuda, case):
                                                      max_iters))
 
 
-@pytest.mark.parametrize("B,N", [(1, 1), (3, 777), (2, 2048 * 3 + 5),
-                                 (2, 1 << 20)])
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 777), (2, 4095), (2, 4096),
+                                 (2, 4097), (2, 2048 * 3 + 5), (2, 1 << 20),
+                                 (16, 1 << 20)])
 def test_radix_sort_any_length(cuda, B, N):
-    """Keys over the whole [0, 2**31) range and keys with many ties, at
-    lengths that are not a multiple of the kernel's tile."""
+    """Keys over the whole [0, 2**31) range, keys with many ties, every key
+    equal (every digit skipped), only the top digit varying, labels padded
+    with INF as pack_batched pads them, and 2**31 - 1 among small keys; at
+    lengths around the kernel's tile of 4096 keys and 16 x 2**20 (the full
+    path's 16 packed label frames); keys and values bitwise to
+    torch.sort(stable=True)."""
     g = torch.Generator(device="cuda").manual_seed(N)
-    for hi in (2 ** 31 - 1, 50):
-        key = torch.randint(0, hi, (B, N), generator=g, device=cuda,
-                            dtype=torch.int32)
-        val = torch.arange(B * N, device=cuda, dtype=torch.int32).reshape(B, N)
-        skey, sval = sort_cuda.sort_pairs(key, val)
-        torch.cuda.synchronize()
+
+    def rand(hi):
+        return torch.randint(0, hi, (B, N), generator=g, device=cuda,
+                             dtype=torch.int32)
+
+    labels = rand(max(N // 8, 1))
+    labels[:, N - N // 4:] = sortp.INF
+    small = rand(1000)
+    small[:, ::7] = 2 ** 31 - 1
+    keys = {"wide": rand(2 ** 31 - 1), "ties": rand(50),
+            "equal": torch.full((B, N), 12345, dtype=torch.int32,
+                                device=cuda),
+            "top_digit": rand(128) << 24, "inf_pads": labels, "max": small}
+    val = torch.arange(B * N, device=cuda, dtype=torch.int32).reshape(B, N)
+    for name, key in keys.items():
         want, idx = torch.sort(key, dim=1, stable=True)
-        assert torch.equal(skey, want)
-        assert torch.equal(sval, torch.gather(val, 1, idx))
+        skey, sval = sort_cuda._radix_sort(key, val)
+        torch.cuda.synchronize()
+        assert torch.equal(skey, want), name
+        assert torch.equal(sval, torch.gather(val, 1, idx)), name
+        assert torch.equal(sort_cuda._radix_sort(key, None)[0], want), name
         assert torch.equal(sort_cuda.sort_keys(key), want)
+        assert torch.equal(sort_cuda.sort_pairs(key, val)[1],
+                           torch.gather(val, 1, idx))
 
 
 def banded(H, W, seed):
@@ -355,15 +379,34 @@ def test_wls_kernels_match_plain(cuda, H, W):
                    quantize_16=False, disp12_max_diff=-1)),
     (30, 90, dict(num_disparities=80, block_size=1, p1=8, p2=32)),
     (1, 50, dict(num_disparities=16)),                     # one row
+    # cost_down's strips: widths no strip divides, blocks 1-11 (the larger
+    # ones at a lower pre_filter_cap, or 4 paths, so three paths fit int16),
+    # D 16 and 256, H 1 and 2, 1, 9 and 16 frames (16 in several launches)
+    (29, 70, dict(num_disparities=16, block_size=1)),
+    (33, 101, dict(num_disparities=32, block_size=3, min_disparity=3)),
+    (40, 97, dict(num_disparities=48, block_size=7, pre_filter_cap=31,
+                  p1=8, p2=96, frames=1)),
+    (20, 90, dict(num_disparities=64, block_size=11, pre_filter_cap=15,
+                  p1=4, p2=32, frames=9)),
+    (24, 50, dict(num_disparities=16, block_size=11, pre_filter_cap=31,
+                  num_paths=4, p1=8, p2=100)),
+    (2, 61, dict(num_disparities=16)),                     # two rows
+    (1, 77, dict(num_disparities=256, frames=1)),
+    (12, 300, dict(num_disparities=256)),
+    (6, 1280, dict(num_disparities=128, frames=16)),
 ])
 def test_staged_kernels_match_plain(cuda, H, W, kw):
     """The fused cost + down kernel, K2 on an int16 S and the three-input
     WTA/LR against their plain versions and against K1-K3, bitwise."""
+    kw = dict(kw)
+    B = kw.pop("frames", 2)
     params = SGBMParams(speckle_window_size=0, **kw)
     D = params.num_disparities
-    left, right = pair(H, W, D, seed=H)
-    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
-    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    pairs = [pair(H, W, D, seed=H + i) for i in range((B + 1) // 2)]
+    left, right = (np.concatenate([p[j] for p in pairs])[:B] for j in (0, 1))
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), cap)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), cap)
     C, S_down = sc.cost_down(lt, rt, params)
     torch.cuda.synchronize()
     C_p, S_down_p = plain.cost_down(lt, rt, params)

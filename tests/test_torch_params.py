@@ -7,9 +7,10 @@ and ``StereoPipeline(device="cpu")``; and ``sgbm_cuda``'s
 
 The jnp matcher cannot run a negative min_disparity with the LR check (its
 winner scatter pads by a negative width), and the port refuses it too, so
-those cases turn the check off with disp12_max_diff = -1; they keep the
-speckle filter off: the port's speckle functions take a negative
-disparity for an invalid pixel."""
+those cases turn the check off with disp12_max_diff = -1. One of them runs
+the speckle filter: it must be told validity by the WTA mask, not by
+disp >= 0, or it drops the valid negative disparities the jnp matcher
+keeps."""
 
 import dataclasses
 
@@ -35,6 +36,9 @@ CASES = {
                        speckle_window_size=0),
     "md-3": dict(num_disparities=16, min_disparity=-3, disp12_max_diff=-1,
                  speckle_window_size=0),
+    "md-3_speckle": dict(num_disparities=16, min_disparity=-3,
+                         disp12_max_diff=-1, speckle_window_size=10,
+                         speckle_range=1),
 }
 
 
@@ -61,17 +65,32 @@ def test_sgbm_cuda_on_cpu_takes_reference_params(case):
     want = jnp_sgbm(left, right, params)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want >= 0).mean() > 0.5
+    # the staged chain's plain path: the same map
+    staged = sc.sgbm_staged_cuda(torch.tensor(left), torch.tensor(right),
+                                 params)
+    np.testing.assert_array_equal(staged.numpy(), want)
     if params.min_disparity < 0:
+        assert ((want < 0) & (want != -1.0)).any()   # valid negatives kept
         with_lr = dataclasses.replace(params, disp12_max_diff=1)
         with pytest.raises(ValueError):
             jnp_sgbm(left, right, with_lr)
         with pytest.raises(ValueError, match="min_disparity"):
             sc.sgbm_cuda(torch.tensor(left), torch.tensor(right), with_lr)
-    else:
-        # the staged chain's plain path: the same map
-        staged = sc.sgbm_staged_cuda(torch.tensor(left), torch.tensor(right),
-                                     params)
-        assert torch.equal(staged, got)
+        with pytest.raises(ValueError, match="min_disparity"):
+            sc.sgbm_staged_cuda(torch.tensor(left), torch.tensor(right),
+                                with_lr)
+
+
+def test_staged_on_cpu_keeps_valid_negative_disparities():
+    """The staged chain alone at min_disparity -3 with the speckle filter
+    on: bitwise the jnp matcher, valid negative disparities kept."""
+    params = SGBMParams(**CASES["md-3_speckle"])
+    left, right = pair(40, 64, 5, seed=3)
+    got = sc.sgbm_staged_cuda(torch.tensor(left), torch.tensor(right),
+                              params)
+    want = jnp_sgbm(left, right, params)
+    assert ((want < 0) & (want != -1.0)).any()
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_sgbm_cuda_apply_speckle():
@@ -99,6 +118,7 @@ RIG = dict(width=64, height=48, focal=60.0, baseline_mm=40.0)
 
 @pytest.mark.parametrize("case,lr_mode", [("D40", "fast"),
                                           ("md-3", "fast"),
+                                          ("md-3_speckle", "fast"),
                                           ("D24_block3", "none")])
 def test_pipeline_on_cpu_takes_reference_params(case, lr_mode):
     """StereoPipeline(device="cpu") against the JAX pipeline's jnp matcher
