@@ -57,9 +57,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    torch.sort(stable=True) on 16 x 2^20 keys, on the unpadded labels (the
    top digit constant, its pass skipped; timed beside), the run modes, the
    compositions, the seeded keep against K5's; then times (kernel,
-   plain, torch.sort for the sorts) and bounds;
+   plain, torch.sort for the sorts), the cost of the host's flag reads
+   in a converged sweep, and bounds;
 8. shared path: the full path's configuration with pair_mode="shared"
-   (K1's pair mode builds both matchers' volumes from one cost build, K3's
+   (K1's pair mode builds both matchers' volumes in one launch, K3's
    mirror mode runs the right matcher's WTA/LR), at the WLS bar, with
    launch counts proving both modes ran; every output equal to the stacked
    path's; ms per batch at batch 8 and ms per process_pair at batch 1 for
@@ -68,13 +69,15 @@ Phases, each of which raises (and exits non-zero) on failure:
    their plain versions frame by frame, bitwise, the two modes timed, and
    sgbm_pair_cuda's two maps equal to the stacked matcher's; then a
    profile of the shared path;
-9. configurations: K1 at blocks 1, 3, 7, 9 and 11 on a 720x1280x128
-   frame against its plain version, bitwise, and timed; StereoPipeline at
+9. configurations: K1 and its pair mode at blocks 1, 3, 7, 9 and 11 on a
+   720x1280x128 frame against their plain versions, bitwise, and timed;
+   StereoPipeline at
    the reference's defaults (downscale 2, 80 disparities, speckle 200/2,
    right matcher, WLS) on BGR frames with remap_precision="f32", and with
    lr_mode="none" and no WLS, each equal to the plain chain on its own
    rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3
-   against their plain versions and the fused and staged matcher equal.
+   and K1's pair mode against their plain versions (the pair mode timed)
+   and the fused and staged matcher equal.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -233,9 +236,22 @@ def phase_build():
     log("ptxas: K1 cost_box_kernel by block: " + ", ".join(
         f"{b}: {n} registers, {sp} B spilled" for name, b, n, sp in entries
         if name == "cost_box_kernel"))
-    log("ptxas: K1 at block 5: " + ", ".join(
-        f"{name} {n} registers" for name, b, n, _ in entries
-        if name in ("cost_box_kernel", "cost_pair_kernel") and b == "5"))
+    log("ptxas: K1 pair cost_pair_strip_kernel by <block,columns>: "
+        + ", ".join(f"<{b}>: {n} registers, {sp} B spilled"
+                    for name, b, n, sp in entries
+                    if name == "cost_pair_strip_kernel"))
+    # the sweep kernel's three kernels, by mode (Min: labels, Max:
+    # propagate; the init kernel by its link test)
+    sweeps = []
+    for chunk in ptxas.split("Compiling entry function '")[1:]:
+        m = re.search(r"(sweep_init|sweep_rows|sweep_cols)INS_\d+(\w+?)E",
+                      chunk.split("'", 1)[0])
+        n = re.search(r"Used (\d+) registers", chunk)
+        sp = re.search(r"(\d+) bytes spill stores", chunk)
+        if m and n:
+            sweeps.append(f"{m.group(1)}<{m.group(2)}> {n.group(1)} "
+                          f"registers, {sp.group(1) if sp else 0} B spilled")
+    log("ptxas: sweep " + ", ".join(sweeps))
     log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
                                  for name, _, n, sp in entries
                                  if name == "fgs_pass_kernel"))
@@ -1111,6 +1127,16 @@ def phase_sort_family(card, errs, maps, r, ws):
         sc.propagate_keep(labels, seeds[0], k), full))
     log(f"sort family: rounds needed: labels {rounds_lab} (capped at 3), "
         f"propagation {rounds_prop}")
+    # converged, the host reads the change flags after every round; capped
+    # at the same number of rounds it never waits: the difference is what
+    # the reads cost
+    conv, capped = in_turns_ms([
+        lambda: sc.propagate_keep(labels, seeds[0]),
+        lambda: sc.propagate_keep(labels, seeds[0], rounds_prop)])
+    conv, capped = sum(conv) / 2, sum(capped) / 2
+    log(f"sort family [{card}]: sweep_propagate converged {conv:.4f} ms, "
+        f"capped at its {rounds_prop} rounds {capped:.4f} ms: the host's "
+        f"flag reads cost {(conv - capped) / rounds_prop:.4f} ms per round")
     # bytes: each input read once, each output written once. Operations:
     # the sweep ~6 per pixel, sweep and round; the sort ~4 per key and
     # pass; the run scans a binary search of log2(n2) steps each way, ~3
@@ -1280,15 +1306,39 @@ def phase_shared_path(card, errs, frames, stacked):
     return launches, times, bounds, pipe
 
 
+def check_pair(card, lt, rt, params, errs):
+    """K1's pair mode on the (1, H, W) Sobel images against its plain
+    version, bitwise, and timed."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    C = sc.cost_volume_pair(lt, rt, params)
+    torch.cuda.synchronize()
+    C_L, C_R = plain.cost_volume_pair(lt, rt, params)
+    e = max(max_abs_err(C[:1], C_L), max_abs_err(C[1:], C_R))
+    del C_L, C_R
+    errs["cost_box_pair"] = max(errs["cost_box_pair"], e)
+    ms = cuda_ms(lambda: sc.cost_volume_pair(lt, rt, params), 3)
+    _, H, W = lt.shape
+    log(f"configs [{card}]: K1 pair block {params.block_size} at "
+        f"1x{H}x{W}x{params.num_disparities}: max|err| vs plain {e}, "
+        f"kernel {ms:.3f} ms")
+    del C
+    if e:
+        raise AssertionError(f"K1's pair mode differs from plain at block "
+                             f"{params.block_size}, {H}x{W}")
+
+
 def phase_configs(card, errs, frames):
     """Configurations the three paths do not run, each held to its plain
-    version: K1 at blocks 1, 3, 7, 9 and 11 on one 720x1280x128 frame
-    (timed); StereoPipeline at the reference's own defaults (downscale 2,
+    version: K1 and its pair mode at blocks 1, 3, 7, 9 and 11 on one
+    720x1280x128 frame (timed); StereoPipeline at the reference's own defaults (downscale 2,
     80 disparities, speckle 200/2, right matcher, WLS) on BGR frames with
     remap_precision="f32", and with lr_mode="none" and no WLS, each output
     against the plain chain on the pipeline's rectified frames; then the
-    stress shape 2560x1440x256 on one frame: K1-K3 against plain, and the
-    fused and the staged matcher (speckle 200/2) agreeing."""
+    stress shape 2560x1440x256 on one frame: K1-K3 and K1's pair mode
+    (timed) against plain, and the fused and the staged matcher (speckle
+    200/2) agreeing."""
     import torch
     from stereo_depth_ruler_tpu_torch import SGBMParams
     from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
@@ -1314,6 +1364,7 @@ def phase_configs(card, errs, frames):
         if e:
             raise AssertionError(f"K1 differs from plain at block {block}")
         del C
+        check_pair(card, lt, rt, params, errs)
     torch.cuda.empty_cache()
 
     rig, lefts, rights, _ = frames
@@ -1368,6 +1419,8 @@ def phase_configs(card, errs, frames):
     rt = plain.sobel_clip(torch.tensor(right, device=DEVICE), 63)
     C, S = check_kernels(lt, rt, params, errs)
     del C, S
+    torch.cuda.empty_cache()
+    check_pair(card, lt, rt, params, errs)
     torch.cuda.empty_cache()
     params = SGBMParams(num_disparities=D, block_size=5,
                         speckle_window_size=200, speckle_range=2)

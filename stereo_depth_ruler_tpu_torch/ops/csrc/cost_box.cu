@@ -9,34 +9,40 @@
 // store (2 B per output: 0.58 ms at 8 x 720 x 1280 x 128 at 3.35 TB/s); the
 // BT evaluations and the box sums are integer and shared-memory work, and
 // that work is what the design cuts. A naive form evaluates BT block^2 =
-// 25 times per output, a block per image row (the pair kernel's cost
-// build) block x (TX + block - 1) / TX = 5.6 times. cost_box_kernel
-// walks a column tile down a strip of rows: per image row it stages that
-// row's doubled BT terms once, evaluates BT once per tile column, (TXB +
-// block - 1) / TXB = 1.25 times per output at block 5, slides the
-// horizontal sum across the tile, and keeps the last block horizontal-sum
-// rows in a shared-memory ring, so the vertical sum is one add and one
-// subtract per output in registers. Two disparities share each 32-bit
-// operation (16-bit halves, biased so that no half carries into the
-// other), each shared-memory load, ring access and store; 16 columns per
-// block keep the registers low enough for more blocks per SM. Of the
-// variants compared on the card (one disparity per thread, 16-byte or
-// packed-byte right terms, 32 columns per block), this was the fastest.
+// 25 times per output, a block per image row block x (32 + block - 1) /
+// 32 = 5.6 times. cost_box_kernel walks a column tile down a strip of
+// rows: per image row it stages that row's doubled BT terms once,
+// evaluates BT once per tile column, (TXB + block - 1) / TXB = 1.25 times
+// per output at block 5, slides the horizontal sum across the tile, and
+// keeps the last block horizontal-sum rows in a shared-memory ring, so the
+// vertical sum is one add and one subtract per output in registers. Two
+// disparities share each 32-bit operation (16-bit halves, biased so that
+// no half carries into the other), each shared-memory load, ring access
+// and store; 16 columns per block keep the registers low enough for more
+// blocks per SM. Of the variants compared on the card (one disparity per
+// thread, 16-byte or packed-byte right terms, 32 columns per block), this
+// was the fastest.
 //
-// Pair mode (emit_sheared plus sgbm_pair_pallas's band fix-up) writes a
-// (2B, H, W, D) volume: C_L in frames [0, B), and in frames [B, 2B) C_R,
-// the right matcher's volume in un-mirrored orientation (cost_volume_pair
-// in ops/sgbm.py). BT is symmetric in its two pixels, so wherever no box
-// window reaches a border column (x >= r and x + d + md + r <= W - 1) C_R
-// is C_L sheared: C_R(y, x, d) = C_L(y, x + d + md, d). A tile block stores
-// those C_R values too. Written straight from registers the shear store
-// would stride by D - 1 elements across a warp, so the block first puts
-// its TX x D values in shared memory and then writes each C_R column's run
-// of <= TX disparities with consecutive threads. The other C_R elements
-// (the left r columns and the right band where x + d + md + r > W - 1) are
-// built directly by extra band blocks of the same launch, with the two
-// images' roles swapped (own pixel in rt, partner in lt at x + d + md);
-// each element has exactly one writer.
+// Pair mode replaces sgbm_pallas.py:emit_sheared and sgbm_pair_pallas's
+// band fix-up. It writes a (2B, H, W, D) volume: C_L in frames [0, B), and
+// in frames [B, 2B) C_R, the right matcher's volume in un-mirrored
+// orientation (cost_volume_pair in ops/sgbm.py). Its bound is the two
+// volumes' stores (1.14 ms at 8 x 720 x 1280 x 128). BT is symmetric in its
+// two pixels, so wherever no box window reaches a border column (x >= r
+// and x + d + md + r <= W - 1) C_R is C_L sheared: C_R(y, x, d) = C_L(y, x
+// + d + md, d), and the TPU kernel shears C_L into C_R. Here
+// cost_pair_strip_kernel builds C_R directly with cost_box_kernel's strip
+// walk, own pixel in rt and partner in lt at x + d + md, in blocks beside
+// the C_L blocks of the same launch: both volumes leave as whole coalesced
+// words, each element with exactly one writer, and the pair costs two
+// single volumes. A form that sheared C_L's values into C_R through shared
+// memory (the runs of <= 16 disparities of each C_R column leaving with
+// consecutive threads, C_R built directly only in the border bands) was
+// timed on the card and was slower at every block and shape tried: the
+// partial runs of 16-bit stores and a second barrier per row cost more
+// than building C_R again (PERF.md §6). It is a kernel of its own, not
+// a mode of cost_box_kernel: a body shared by two modes cost the single
+// volume registers and time whenever that was tried.
 //
 // All values are exact small integers (Sobel output <= 2 * 63, BT <= 252,
 // box sum <= 121 * 252 = 30492 < 32767), so integer arithmetic reproduces
@@ -47,7 +53,6 @@
 
 namespace {
 
-constexpr int TX = 32;  // output columns per block of the pair kernel
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -72,7 +77,8 @@ __device__ __forceinline__ void bt_terms(const float* row, int c, int W,
 // (BIAS2) where a difference could go negative, so plain 32-bit adds and
 // subtracts never carry or borrow across the halves, and max / min are the
 // H100's two-lane 16-bit integer instructions.
-constexpr int TXB = 16;                  // output columns per block
+constexpr int TXB = 16;       // output columns per block
+constexpr int TXP_PAIR = 16;  // output columns per block of the pair kernel
 constexpr unsigned BIAS2 = 0x01000100u;  // 256 in both halves
 
 __device__ __forceinline__ unsigned max2(unsigned a, unsigned b) {
@@ -96,6 +102,16 @@ __device__ __forceinline__ void bt_terms3(const float* row, int c, int W,
   *v2 = (unsigned)v;
   *mn2 = (unsigned)mn;
   *mx2 = (unsigned)mx;
+}
+
+// A staged partner word: terms (lo, hi) in the halves, (RV, RV + 256, RMX,
+// RMN + 256), as cost_box_kernel stages its right-view pairs.
+__device__ __forceinline__ uint4 pair_word(unsigned v_lo, unsigned mn_lo,
+                                           unsigned mx_lo, unsigned v_hi,
+                                           unsigned mn_hi, unsigned mx_hi) {
+  const unsigned RV = v_lo | (v_hi << 16);
+  return make_uint4(RV, RV + BIAS2, mx_lo | (mx_hi << 16),
+                    (mn_lo | (mn_hi << 16)) + BIAS2);
 }
 
 // The single-volume cost: a block owns TXB columns x all D disparities
@@ -217,151 +233,138 @@ cost_box_kernel(const float* __restrict__ lt, const float* __restrict__ rt,
   }
 }
 
-// cost_pair_kernel's cost build, a block per image row, the roles set by
-// SGN: acc[i] = box sum over the block x block window around (y, x0 + i)
-// of BT(own[xc], partner[xc + SGN * (d + md)]), window columns xc and
-// partner columns clamped to the image, for the thread's d. SGN = -1 builds
-// C_L (own lt, partner rt); SGN = +1 builds C_R directly (own rt, partner
-// lt).
-template <int BLOCK, int SGN>
-__device__ __forceinline__ void box_cost(const float* __restrict__ own,
-                                         const float* __restrict__ par,
-                                         int H, int W, int D, int md, int y,
-                                         int x0, int* acc) {
-  extern __shared__ short smem[];
-  constexpr int R0 = BLOCK / 2;        // window rows/cols -R0 .. BLOCK-1-R0
-  constexpr int NJ = TX + BLOCK - 1;   // own columns per staged row
-  const int NR = NJ + D - 1;           // partner columns per staged row
-  short* ov2 = smem;                   // [BLOCK][NJ] x 3
-  short* omn = ov2 + BLOCK * NJ;
-  short* omx = omn + BLOCK * NJ;
-  short* pv2 = omx + BLOCK * NJ;       // [BLOCK][NR] x 3
-  short* pmn = pv2 + BLOCK * NR;
-  short* pmx = pmn + BLOCK * NR;
+// The pair kernel: cost_box_kernel's walk down a strip of rows (one BT row
+// staged per step, a sliding horizontal sum, a ring of BLOCK horizontal-sum
+// rows, two disparities per 32-bit word), with two kinds of block in one
+// launch: blocks bx < n_main own C_L tile x0 = bx * TXP, the others C_R
+// tile x0 = (bx - n_main) * TXP, own pixel in rt and partner in lt at x + d
+// + md. Both store whole words as cost_box_kernel does. The two are
+// compile-time instances of one body (CR), so neither carries the other's
+// selects in its registers.
+//
+// Partner terms: term k is image column clamp(pbase + k). A C_L block
+// (pbase = x0 - R0 - (D - 1) - md) pairs tile column j with k0 = j + D - 1
+// - 2t in the low half and k0 - 1 in the high, as cost_box_kernel; a C_R
+// block (pbase = x0 - R0 + md) with k = j + 2t in the low half and k + 1
+// in the high. Either way the word for an even j sits at pe[j / 2] and for
+// an odd j at po[(j - 1) / 2], so that a warp reads 32 consecutive 16-byte
+// words. Clamped columns: a C_L tile cut by the image's right edge repeats
+// column W - 1's cost (as cost_box_kernel), a C_R tile cut by the left
+// edge repeats column 0's (there the own column clamps and the partner,
+// at d + md, does not).
+template <int BLOCK, int TXP, bool CR>
+__device__ __forceinline__ void pair_strip(const float* __restrict__ lt,
+                                           const float* __restrict__ rt,
+                                           int16_t* __restrict__ out, int B,
+                                           int H, int W, int D, int md,
+                                           int SH, int x0) {
+  constexpr int R0 = BLOCK / 2;
+  constexpr int NJ = TXP + BLOCK - 1;
+  const int NR = NJ + D - 1;
+  const int NP = NR / 2 + 1;
+  const int NT = NJ + 2 * NP;
+  extern __shared__ uint4 smem16[];
+  const int T = blockDim.x;  // D / 2
+  unsigned* ring = (unsigned*)(smem16 + 2 * NT);  // [BLOCK][TXP][T]
+  const int b = blockIdx.z, t = threadIdx.x;
+  const int y0 = blockIdx.y * SH, y1 = min(y0 + SH, H);
+  const float* own = (CR ? rt : lt) + (size_t)b * H * W;
+  const float* par = (CR ? lt : rt) + (size_t)b * H * W;
+  const int pbase = CR ? x0 - R0 + md : x0 - R0 - (D - 1) - md;
+  const int jW = W - 1 - (x0 - R0);  // C_L tiles: last unclamped column
+  const int jL = R0 - x0;            // C_R tiles: first unclamped column
+  const unsigned h0 = (unsigned)(BLOCK * 256) * 0x10001u;  // biased zero
 
-  // own column j of the padded tile is image column xc(j) = clamp(x0-R0+j);
-  // partner column u = xc + SGN * (d + md) is staged at u - pbase
-  const int xc0 = clampi(x0 - R0, 0, W - 1);
-  const int pbase = SGN < 0 ? xc0 - (D - 1) - md : xc0 + md;
-
-  for (int i = threadIdx.x; i < BLOCK * NJ; i += blockDim.x) {
-    const int r = i / NJ, j = i % NJ;
-    const float* row = own + (size_t)clampi(y - R0 + r, 0, H - 1) * W;
-    bt_terms(row, clampi(x0 - R0 + j, 0, W - 1), W, &ov2[i], &omn[i],
-             &omx[i]);
-  }
-  for (int i = threadIdx.x; i < BLOCK * NR; i += blockDim.x) {
-    const int r = i / NR, k = i % NR;
-    const float* row = par + (size_t)clampi(y - R0 + r, 0, H - 1) * W;
-    bt_terms(row, clampi(pbase + k, 0, W - 1), W, &pv2[i], &pmn[i], &pmx[i]);
-  }
-  __syncthreads();
-
-  const int d = threadIdx.x;
+  for (int i = 0; i < BLOCK * TXP; ++i) ring[i * T + t] = h0;
+  unsigned V[TXP];
 #pragma unroll
-  for (int i = 0; i < TX; ++i) acc[i] = 0;
+  for (int i = 0; i < TXP; ++i) V[i] = 0;
 
-  for (int r = 0; r < BLOCK; ++r) {
-    int bt[NJ];
+  int slot = 0;
+  const int steps = (y1 - y0) + BLOCK - 1;
+  for (int s = 0; s < steps; ++s) {
+    const size_t row = (size_t)clampi(y0 - R0 + s, 0, H - 1) * W;
+    uint4* tl = smem16 + (s & 1) * NT;
+    uint4* qo = tl + NJ;
+    uint4* qe = qo + NP;
+    for (int i = t; i < NJ; i += T) {
+      unsigned v, mn, mx;
+      bt_terms3(own + row, clampi(x0 - R0 + i, 0, W - 1), W, &v, &mn, &mx);
+      const unsigned L = v * 0x10001u;
+      tl[i] = make_uint4(L + BIAS2, L, mx * 0x10001u, mn * 0x10001u + BIAS2);
+    }
+    for (int m = t; m < NP; m += T) {
+      // terms k1 .. k1 + 2; C_L: qo[m] = (2m + 1, 2m), qe[m] = (2m, 2m - 1);
+      // C_R: qe[m] = (2m, 2m + 1), qo[m] = (2m + 1, 2m + 2), (low, high)
+      const int k1 = CR ? 2 * m : 2 * m - 1;
+      unsigned v0, mn0, mx0, v1, mn1, mx1, v2, mn2, mx2;
+      bt_terms3(par + row, clampi(pbase + k1, 0, W - 1), W, &v0, &mn0, &mx0);
+      bt_terms3(par + row, clampi(pbase + k1 + 1, 0, W - 1), W, &v1, &mn1,
+                &mx1);
+      bt_terms3(par + row, clampi(pbase + k1 + 2, 0, W - 1), W, &v2, &mn2,
+                &mx2);
+      qo[m] = CR ? pair_word(v1, mn1, mx1, v2, mn2, mx2)
+                   : pair_word(v2, mn2, mx2, v1, mn1, mx1);
+      qe[m] = CR ? pair_word(v0, mn0, mx0, v1, mn1, mx1)
+                   : pair_word(v1, mn1, mx1, v0, mn0, mx0);
+    }
+    __syncthreads();
+
+    const uint4* pe = CR ? qe + t : qo + (T - 1 - t);
+    const uint4* po = CR ? qo + t : qe + (T - t);
+    unsigned bt[NJ];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int oi = r * NJ + j;
-      const int xc = clampi(x0 - R0 + j, 0, W - 1);
-      const int pi = r * NR + (SGN < 0 ? xc - d - md - pbase
-                                        : xc + d + md - pbase);
-      const int ov = ov2[oi], pv = pv2[pi];
-      const int c_op = max(0, max(ov - pmx[pi], pmn[pi] - ov));
-      const int c_po = max(0, max(pv - omx[oi], omn[oi] - pv));
-      bt[j] = min(c_op, c_po);
+      const uint4 r = (j & 1) ? po[(j - 1) >> 1] : pe[j >> 1];
+      const uint4 l = tl[j];
+      const unsigned c_lr = max2(max2(l.x - r.z, r.w - l.y), BIAS2);
+      const unsigned c_rl = max2(max2(r.y - l.z, l.w - r.x), BIAS2);
+      bt[j] = min2(c_lr, c_rl);
     }
+    if (!CR && jW < NJ - 1) {
 #pragma unroll
-    for (int i = 0; i < TX; ++i) {
+      for (int j = 1; j < NJ; ++j) bt[j] = j > jW ? bt[j - 1] : bt[j];
+    }
+    if (CR && jL > 0) {
 #pragma unroll
-      for (int k = 0; k < BLOCK; ++k) acc[i] += bt[i + k];
+      for (int j = NJ - 2; j >= 0; --j) bt[j] = j < jL ? bt[j + 1] : bt[j];
+    }
+    unsigned* rs = ring + slot * TXP * T + t;
+    unsigned h = 0;
+#pragma unroll
+    for (int k = 0; k < BLOCK; ++k) h += bt[k];
+#pragma unroll
+    for (int i = 0; i < TXP; ++i) {
+      if (i > 0) h = h + bt[i + BLOCK - 1] - bt[i - 1];
+      const unsigned old = rs[i * T];
+      rs[i * T] = h;
+      V[i] = V[i] + h - old;
+    }
+    slot = slot + 1 == BLOCK ? 0 : slot + 1;
+    if (s < BLOCK - 1) continue;
+
+    const int y = y0 + s - (BLOCK - 1);
+    unsigned* o = (unsigned*)(out + ((((size_t)(CR ? B : 0) + b) * H +
+                                      y) * W + x0) * D) + t;
+#pragma unroll
+    for (int i = 0; i < TXP; ++i) {
+      if (x0 + i < W) o[(size_t)i * T] = V[i];
     }
   }
 }
 
-// Pair mode. Launched with D threads per block, grid (n_main + n_band, H,
-// B): blocks bx < n_main own C_L tile x0 = bx * TX and its sheared C_R
-// values; the n_band others build C_R band tiles, with R0 > 0 the first
-// the left tile (columns < R0), the rest tiling the right band from column
-// cb. Its cost build (box_cost) is the first single-volume kernel's, one
-// block per image row; it shares no body with cost_box_kernel: every way
-// of sharing that was timed cost one of the two kernels registers or time.
-template <int BLOCK>
-__global__ void cost_pair_kernel(const float* __restrict__ lt,
-                                 const float* __restrict__ rt,
-                                 int16_t* __restrict__ out, int B, int H,
-                                 int W, int D, int md, int n_main, int cb) {
-  constexpr int R0 = BLOCK / 2;
-  constexpr int NJ = TX + BLOCK - 1;
-  extern __shared__ short smem[];
-  const int b = blockIdx.z, y = blockIdx.y, bx = blockIdx.x, d = threadIdx.x;
-  const size_t frame = (size_t)H * W * D;
-  const float* lt_b = lt + (size_t)b * H * W;
-  const float* rt_b = rt + (size_t)b * H * W;
-  int acc[TX];
-
-  if (bx >= n_main) {  // a C_R band tile, built directly
-    const int k = bx - n_main;
-    const bool left_tile = R0 > 0 && k == 0;
-    const int x0 = left_tile ? 0 : cb + (k - (R0 > 0)) * TX;
-    box_cost<BLOCK, +1>(rt_b, lt_b, H, W, D, md, y, x0, acc);
-    int16_t* o = out + (B + b) * frame + (size_t)y * W * D + d;
-#pragma unroll
-    for (int i = 0; i < TX; ++i) {
-      const int c = x0 + i;
-      const bool band = left_tile ? c < R0
-                                  : (c >= R0 && c + d + md + R0 > W - 1);
-      if (c < W && band) o[(size_t)c * D] = (int16_t)acc[i];
-    }
-    return;
-  }
-
-  const int x0 = bx * TX;
-  box_cost<BLOCK, -1>(lt_b, rt_b, H, W, D, md, y, x0, acc);
-  int16_t* o = out + b * frame + ((size_t)y * W + x0) * D + d;
-#pragma unroll
-  for (int i = 0; i < TX; ++i) {
-    if (x0 + i < W) o[(size_t)i * D] = (int16_t)acc[i];
-  }
-
-  // the shear: stage[t][d] = C_L(y, x0 + t, d) = C_R(y, x0 + t - d - md, d)
-  const int DP = D + 1;  // odd row pitch: a C_R column's run reads
-                         // conflict-free along the diagonal
-  short* stage = smem + 3 * BLOCK * (2 * NJ + D - 1);
-#pragma unroll
-  for (int i = 0; i < TX; ++i) stage[i * DP + d] = (short)acc[i];
-  __syncthreads();
-  // C_R column c = x0 - md - (D - 1) + kc holds d = D - 1 - kc + t for the
-  // tile's t in [0, TX): consecutive threads store consecutive d
-  int16_t* oR = out + (B + b) * frame + (size_t)y * W * D;
-  for (int idx = threadIdx.x; idx < (D + TX - 1) * TX; idx += blockDim.x) {
-    const int kc = idx / TX, t = idx % TX;
-    const int dd = D - 1 - kc + t;
-    const int xl = x0 + t, c = xl - dd - md;
-    if (dd >= 0 && dd < D && c >= R0 && xl + R0 <= W - 1)
-      oR[(size_t)c * D + dd] = stage[t * DP + dd];
-  }
-}
-
-template <int BLOCK>
-cudaError_t launch_pair(const float* lt, const float* rt, int16_t* out, int B,
-                        int H, int W, int D, int md, cudaStream_t stream) {
-  constexpr int R0 = BLOCK / 2;
-  const int NJ = TX + BLOCK - 1;
-  const size_t smem =
-      sizeof(short) * (3 * BLOCK * (NJ + NJ + D - 1) + TX * (D + 1));
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const int n_main = (W + TX - 1) / TX;
-  // right band: columns c where some d gives c + d + md + R0 > W - 1
-  const int cb = max(0, W - D - md - R0 + 1);
-  const int n_band = (R0 > 0) + (W - cb + TX - 1) / TX;
-  dim3 grid(n_main + n_band, H, B);
-  cost_pair_kernel<BLOCK><<<grid, D, smem, stream>>>(lt, rt, out, B, H, W, D,
-                                                     md, n_main, cb);
-  return cudaGetLastError();
+template <int BLOCK, int TXP>
+__global__ void __launch_bounds__(128)
+cost_pair_strip_kernel(const float* __restrict__ lt,
+                       const float* __restrict__ rt,
+                       int16_t* __restrict__ out, int B, int H, int W, int D,
+                       int md, int SH, int n_main) {
+  const int bx = blockIdx.x;
+  if (bx < n_main)
+    pair_strip<BLOCK, TXP, false>(lt, rt, out, B, H, W, D, md, SH, bx * TXP);
+  else
+    pair_strip<BLOCK, TXP, true>(lt, rt, out, B, H, W, D, md, SH,
+                                 (bx - n_main) * TXP);
 }
 
 // Strips of at most STRIP rows: at 720 rows 12 strips of 60, so one frame
@@ -389,11 +392,33 @@ cudaError_t launch_box(const float* lt, const float* rt, int16_t* out, int B,
   return cudaGetLastError();
 }
 
+template <int BLOCK, int TXP>
+cudaError_t launch_pair(const float* lt, const float* rt, int16_t* out, int B,
+                        int H, int W, int D, int md, cudaStream_t stream) {
+  const int NJ = TXP + BLOCK - 1, NR = NJ + D - 1, NP = NR / 2 + 1;
+  const size_t smem = sizeof(uint4) * 2 * (NJ + 2 * NP) +
+                      sizeof(unsigned) * (size_t)BLOCK * TXP * (D / 2);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cost_pair_strip_kernel<BLOCK, TXP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int strips0 = (H + STRIP - 1) / STRIP;
+  const int SH = (H + strips0 - 1) / strips0;
+  const int n_main = (W + TXP - 1) / TXP;
+  dim3 grid(2 * n_main, (H + SH - 1) / SH, B);
+  cost_pair_strip_kernel<BLOCK, TXP><<<grid, D / 2, smem, stream>>>(
+      lt, rt, out, B, H, W, D, md, SH, n_main);
+  return cudaGetLastError();
+}
+
 template <int BLOCK>
 cudaError_t launch(const float* lt, const float* rt, int16_t* out, int B,
                    int H, int W, int D, int md, int pair,
                    cudaStream_t stream) {
-  return pair ? launch_pair<BLOCK>(lt, rt, out, B, H, W, D, md, stream)
+  return pair ? launch_pair<BLOCK, TXP_PAIR>(lt, rt, out, B, H, W, D, md,
+                                             stream)
               : launch_box<BLOCK>(lt, rt, out, B, H, W, D, md, stream);
 }
 
@@ -401,12 +426,11 @@ cudaError_t launch(const float* lt, const float* rt, int16_t* out, int B,
 
 // lt, rt: (B, H, W) float32 Sobel-clipped images (exact integers).
 // out: (B, H, W, D) int16, or with pair != 0 (2B, H, W, D): C_L then C_R.
-// block must be odd, 1..11; 1 <= D <= 1024 (the single volume: D even,
-// at most 256).
+// block must be odd, 1..11; D even, 2 <= D <= 256.
 extern "C" int sdr_cost_box(const float* lt, const float* rt, int16_t* out,
                             int B, int H, int W, int D, int md, int block,
                             int pair, void* stream) {
-  if (D < 1 || D > (pair ? 1024 : 256) || (!pair && D % 2) || md < 0 ||
+  if (D < 2 || D > 256 || D % 2 || md < 0 ||
       B < 1 || H < 1 || W < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

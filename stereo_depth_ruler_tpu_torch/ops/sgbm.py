@@ -138,9 +138,10 @@ def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor, params: SGBMParams
     ``cost_volume(lt, rt)``, C_R the right matcher's volume in un-mirrored
     orientation, the cost volume of the mirrored, swapped images flipped
     back along W. The Sobel of a mirrored image is 2*cap minus the mirrored
-    Sobel. The plain version of the cost kernel's pair mode, which gets
-    C_R from C_L by the shear C_R(y, x, d) = C_L(y, x + d + md, d) wherever
-    no box window reaches a border column."""
+    Sobel. The plain version of the cost kernel's pair mode, which builds
+    C_R directly beside C_L (the TPU kernel shears C_L instead: C_R(y, x,
+    d) = C_L(y, x + d + md, d) wherever no box window reaches a border
+    column)."""
     cap = params.pre_filter_cap
     lt_m = (2.0 * cap - rt).flip(-1)
     rt_m = (2.0 * cap - lt).flip(-1)

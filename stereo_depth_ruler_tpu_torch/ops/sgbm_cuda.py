@@ -6,7 +6,7 @@ torch, then
 
 - K1 ``cost_volume``  (csrc/cost_box.cu): BT cost + box sum -> int16 C;
   ``cost_volume_pair``, its pair mode, writes the left and the right
-  matcher's volumes from one cost build;
+  matcher's volumes in one launch;
 - K2 ``sgm_pass``     (csrc/sgm_pass.cu): one launch per path direction,
   adding L into an int32 S (the 8-path sum reaches ~70000, past int16);
 - K3 ``wta_lr``       (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR;
@@ -73,6 +73,7 @@ LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
             "transpose_leading": 0, "transpose_dhw": 0}
 I16_MAX = 32767
+SWEEP_MAX_SIDE = 32768   # the sweep kernel's largest H and W (csrc/sweep.cu)
 
 
 def reset_launch_counts() -> None:
@@ -128,7 +129,7 @@ def cost_volume_pair(lt: torch.Tensor, rt: torch.Tensor,
     """(B, H, W) Sobel-clipped images -> one (2B, H, W, D) int16 volume:
     the left matcher's C_L in frames [0, B) and the right matcher's C_R, in
     un-mirrored orientation, in frames [B, 2B) (``plain.cost_volume_pair``),
-    from one cost build."""
+    in one launch."""
     if not kernels.on_cuda(lt, rt):
         return torch.cat(plain.cost_volume_pair(lt, rt, params)).to(
             torch.int16)
@@ -242,12 +243,16 @@ def _sweep(a: torch.Tensor, seed: Optional[torch.Tensor], max_diff: float,
     B, H, W = a.shape
     if max_iters < 0:
         raise ValueError(f"max_iters must be >= 0, got {max_iters}")
+    if max(H, W) > SWEEP_MAX_SIDE:
+        raise ValueError(f"the sweep kernel takes H, W <= {SWEEP_MAX_SIDE}, "
+                         f"got {H}x{W}")
     out = torch.empty((B, H, W), dtype=torch.int32, device=a.device)
-    flags = torch.empty((2, B), dtype=torch.int32, device=a.device)
+    link = torch.empty((B, H, W), dtype=torch.uint8, device=a.device)
+    flags = torch.empty((3, B), dtype=torch.int32, device=a.device)
     rc = kernels.load().sdr_sweep(
         a.data_ptr(), None if seed is None else seed.data_ptr(),
-        out.data_ptr(), flags.data_ptr(), B, H, W, float(max_diff),
-        int(max_iters), kernels.stream())
+        out.data_ptr(), link.data_ptr(), flags.data_ptr(), B, H, W,
+        float(max_diff), int(max_iters), kernels.stream())
     kernels.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -513,7 +518,7 @@ def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
                    params: SGBMParams = SGBMParams()
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) float32 pair -> the left and the right matcher's (B, H, W)
-    disparities, invalid -1.0, from one cost build: K1's pair mode writes
+    disparities, invalid -1.0, from one pair volume: K1's pair mode writes
     both volumes into one (2B, H, W, D) buffer, K2 sums the paths of all 2B
     frames (the path sum is mirror-equivariant, so the right volume needs
     no mirrored pass), K3 runs the right half in mirror mode, then the

@@ -74,9 +74,9 @@ _SIGNATURES = {
     "sdr_shift_gather_conf": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # guide, u, out, cp (scratch), B, H, W, rows, lam, sigma, stream
     "sdr_fgs_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # disp or labels, seed (null: labels mode), out, flags, B, H, W,
-    # max_diff, max_iters, stream
-    "sdr_sweep": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # disp or labels, seed (null: labels mode), out, link (scratch), flags,
+    # B, H, W, max_diff, max_iters, stream
+    "sdr_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # key_in, val_in, key_out, val_out, key_tmp, val_tmp, scratch, B, N,
     # stream (val pointers null: keys only)
     "sdr_radix_sort": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -96,6 +96,58 @@ def test_cost_box_every_block_matches_plain(cuda, block, H, W, D, md):
     assert torch.equal(C.float(), plain.cost_volume(lt, rt, params))
 
 
+@pytest.mark.parametrize("H,W,D,md", [
+    (3, 20, 16, 0),
+    (130, 100, 16, 3),
+    (70, 45, 256, 0),
+    (2, 300, 256, 3),
+])
+@pytest.mark.parametrize("block", [1, 3, 5, 7, 9, 11])
+def test_cost_pair_every_block_matches_plain(cuda, block, H, W, D, md):
+    """K1's pair mode (the C_L and the C_R tiles of one launch) against
+    ops/sgbm.py:cost_volume_pair, bitwise, at every block size and the
+    shapes of the single-volume test."""
+    params = SGBMParams(num_disparities=D, min_disparity=md,
+                        block_size=block, speckle_window_size=0)
+    left, right = pair(H, W, D, seed=H + W + block + 1)
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    C = sc.cost_volume_pair(lt, rt, params)
+    torch.cuda.synchronize()
+    assert C.dtype == torch.int16
+    assert torch.equal(C.float(), torch.cat(plain.cost_volume_pair(lt, rt,
+                                                                   params)))
+
+
+@pytest.mark.parametrize("B,H,W,D,md,block", [
+    (2, 24, 40, 64, 0, 5),      # W < D: every C_R column in the band
+    (2, 24, 30, 32, 2, 7),      # W < D + md
+    (2, 33, 35, 32, 0, 5),      # W = D + md + r + 1: the band's edge
+    (2, 33, 34, 32, 0, 5),      # W = D + md + r
+    (2, 33, 33, 32, 0, 5),      # W = D + md + r - 1
+    (2, 17, 147, 128, 16, 9),   # W = D + md + r - 1, md > 0
+    (2, 10, 200, 48, 1, 3),     # H below one strip of rows
+    (16, 20, 96, 32, 0, 5),     # 16 frames
+])
+def test_cost_pair_band_edges(cuda, B, H, W, D, md, block):
+    """K1's pair mode where every C_R column lies in the TPU kernel's
+    border band (W < D), around the band's first column (W = D + md + r
+    and one either side), on fewer rows than one strip and on 16 frames,
+    bitwise."""
+    params = SGBMParams(num_disparities=D, min_disparity=md,
+                        block_size=block, speckle_window_size=0)
+    rng = np.random.default_rng(B + H + W)
+    left = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    right = np.clip(np.roll(left, -(D // 3), axis=2)
+                    + rng.normal(0, 2, left.shape), 0, 255).astype(np.float32)
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), 63)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), 63)
+    C = sc.cost_volume_pair(lt, rt, params)
+    torch.cuda.synchronize()
+    assert torch.equal(C.float(), torch.cat(plain.cost_volume_pair(lt, rt,
+                                                                   params)))
+
+
 @pytest.mark.parametrize("N", [1, 2, 3, 720, 1280, 7168])
 def test_fgs_pass_any_length(cuda, N):
     """K6 (the Thomas recurrence from both ends of each line) against its
@@ -257,6 +309,56 @@ def test_sweep_kernel_matches_plain(cuda, case):
         torch.cuda.synchronize()
         assert torch.equal(keep, plain.speckle_keep_seeded(labels, max_size))
         assert torch.equal(keep, sc.speckle_keep(disp, labels, max_size) >= 0)
+
+
+def vertical_serpentine(H, W, pitch=2):
+    """One 1-px-wide snake of vertical runs, each the full height: every
+    run crosses every row chunk of the column pass."""
+    disp = -np.ones((H, W), np.float32)
+    for c in range(0, W, 2 * pitch):
+        disp[:, c] = 5.0
+        if c + 2 * pitch < W:
+            r = H - 1 if (c // (2 * pitch)) % 2 == 0 else 0
+            disp[r, c:c + 2 * pitch + 1] = 5.0
+    return disp
+
+
+def sweep_case(case):
+    if case == "one_row":
+        d = noisy(1, 2000, seed=7)
+    elif case == "one_column":
+        d = noisy(1500, 1, seed=8)
+    elif case == "ragged":          # no chunk of rows, and not 32, divides
+        d = noisy(1061, 45, seed=9)
+    elif case == "vertical_serpentine":
+        s = vertical_serpentine(197, 75)
+        d = np.stack([s, s[::-1, ::-1]])
+    else:                           # one frame at the stress shape
+        d = noisy(1440, 2560, seed=10)[:1]
+    return torch.tensor(np.ascontiguousarray(d), device="cuda")
+
+
+@pytest.mark.parametrize("case", ["one_row", "one_column", "ragged",
+                                  "vertical_serpentine", "stress_frame"])
+def test_sweep_any_shape(cuda, case):
+    """The sweep kernel's two modes at H = 1, W = 1, H and W that no row
+    chunk and no 32 divide, on a vertical serpentine whose runs cross
+    every chunk boundary, and on one 1440x2560 frame: capped at 1-3 rounds
+    and converged, bitwise against their plain versions."""
+    disp = sweep_case(case)
+    for max_iters in (1, 2, 3, 0):
+        got = sc.sweep_labels(disp, 1.0, max_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.speckle_labels(disp, 1.0, max_iters))
+    labels = sc.speckle_labels(disp, 1.0)
+    assert torch.equal(got, labels)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    seed = (torch.rand(labels.shape, generator=g, device=cuda)
+            < 0.01).to(torch.int32)
+    for max_iters in (1, 2, 3, 0):
+        got = sc.propagate_keep(labels, seed, max_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain.propagate_keep(labels, seed, max_iters))
 
 
 @pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid",

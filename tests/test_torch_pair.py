@@ -153,7 +153,7 @@ def test_cost_volume_pair(block, min_disp):
         js.bt_cost_volume(jnp.asarray(lt_m.numpy()), jnp.asarray(rt_m.numpy()),
                           16, min_disp), block)
     eq(C_R, np.asarray(want)[:, ::-1])
-    # the shear the kernel's pair mode stores, exact off the border bands
+    # the shear of the TPU's pair kernel, exact off the border bands
     r, W = block // 2, 40
     for d in range(16):
         xs = np.arange(r, W - r - d - min_disp)
