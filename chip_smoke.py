@@ -43,7 +43,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    columns), with launch counts proving K1-K7 ran, frames/s and peak
    memory; then K1-K7 on that path's own inputs (K1-K3 on the 16 stacked
    frames, 16x720x1280x128) against their plain versions, bitwise, and
-   K4-K7 timed; then torch.profiler traces three batches of the
+   K4-K7 timed (K5 beside scatter_add_, its histogram alone), and
+   K4's and K5's three launches each timed apart (CUDA events between
+   them, through speckle.cu's part entries); then torch.profiler traces
+   three batches of the
    full path for the device time per kernel and the device's busy share;
    the full path launches exactly K1-K7;
 7. sort family: on the full path's 16 matcher maps (before the speckle
@@ -76,8 +79,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    right matcher, WLS) on BGR frames with remap_precision="f32", and with
    lr_mode="none" and no WLS, each equal to the plain chain on its own
    rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3
-   and K1's pair mode against their plain versions (the pair mode timed)
-   and the fused and staged matcher equal.
+   and K1's pair mode against their plain versions (the pair mode timed),
+   the fused and staged matcher equal, and K4/K5 on the matcher's map
+   against their plain versions, bitwise, and timed.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -159,6 +163,9 @@ SORT_FAMILY = ("sweep_labels", "sweep_propagate", "radix_sort_keys",
 # with 8 paths, and the transposes, launched by the stage profiler
 STAGED_CHAIN = {"cost_down": 1, "sgm_pass_i16": 5, "wta_lr3": 1}
 TRANSPOSES = ("transpose_vol", "transpose_leading", "transpose_dhw")
+# K4's and K5's sub-launches, in order (speckle.cu's part entries)
+SPECKLE_PARTS = {"speckle_labels": ("tiles", "borders", "resolve"),
+                 "speckle_keep": ("count", "add", "apply")}
 DEVICE = "cuda"
 # (H, W, D) of the K1-K3 checks; the serpentine's (H, W); the main path's
 # batch, H, W and D (the JAX package's headline widths)
@@ -252,6 +259,18 @@ def phase_build():
             sweeps.append(f"{m.group(1)}<{m.group(2)}> {n.group(1)} "
                           f"registers, {sp.group(1) if sp else 0} B spilled")
     log("ptxas: sweep " + ", ".join(sweeps))
+    # K4's and K5's three launches each
+    speckle = []
+    for chunk in ptxas.split("Compiling entry function '")[1:]:
+        m = re.search(r"\d(labels_tiles|labels_borders|labels_resolve|"
+                      r"keep_count|keep_add|keep_apply)E",
+                      chunk.split("'", 1)[0])
+        n = re.search(r"Used (\d+) registers", chunk)
+        sp = re.search(r"(\d+) bytes spill stores", chunk)
+        if m and n:
+            speckle.append(f"{m.group(1)} {n.group(1)} registers, "
+                           f"{sp.group(1) if sp else 0} B spilled")
+    log("ptxas: K4/K5 " + ", ".join(speckle))
     log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
                                  for name, _, n, sp in entries
                                  if name == "fgs_pass_kernel"))
@@ -470,6 +489,53 @@ def check_speckle(disp, max_diff, max_size, errs, tag):
                              f"versions ({tag}): labels {e_lab}, keep "
                              f"{e_keep}")
     return labels, kept
+
+
+def speckle_split(card, disp, max_diff, max_size, reps=5):
+    """ms per sub-launch of K4 and K5 on ``disp``: each sub-launch alone
+    through speckle.cu's part entries, CUDA events between them, the mean
+    of ``reps`` runs after a warm-up. A timing mode of this script only:
+    the wrappers time nothing. The split's labels and output must equal
+    the wrappers'."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.utils import kernels
+    lib = kernels.load()
+    B, H, W = disp.shape
+    labels = torch.empty(disp.shape, dtype=torch.int32, device=disp.device)
+    sizes = torch.empty((B, H * W + 1), dtype=torch.int32, device=disp.device)
+    out = torch.empty_like(disp)
+    calls = {
+        "speckle_labels": lambda k: lib.sdr_speckle_labels_part(
+            disp.data_ptr(), labels.data_ptr(), B, H, W, float(max_diff), k,
+            kernels.stream()),
+        "speckle_keep": lambda k: lib.sdr_speckle_keep_part(
+            disp.data_ptr(), labels.data_ptr(), sizes.data_ptr(),
+            out.data_ptr(), B, H, W, int(max_size), k, kernels.stream())}
+    split = {}
+    for name, parts in SPECKLE_PARTS.items():
+        ms = [0.0] * len(parts)
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(parts) + 1)]
+            ev[0].record()
+            for k in range(len(parts)):
+                kernels.check(calls[name](k), f"{name} part {k}")
+                ev[k + 1].record()
+            torch.cuda.synchronize()
+            for k in range(len(parts)):
+                ms[k] += ev[k].elapsed_time(ev[k + 1]) / reps if rep else 0.0
+        split[name] = dict(zip(parts, ms))
+    want = sc.speckle_labels(disp, max_diff)
+    if not (torch.equal(labels, want) and torch.equal(
+            out, sc.speckle_keep(disp, want, max_size))):
+        raise AssertionError("the speckle split's output differs from the "
+                             "wrappers'")
+    log(f"speckle split [{card}] {tuple(disp.shape)}, ms per sub-launch: "
+        + "; ".join(f"{name} " + ", ".join(f"{p} {t:.4f}"
+                                           for p, t in parts.items())
+                    for name, parts in split.items()))
+    return split
 
 
 def check_wls(dl, dr, guide, max_disp, errs, tag):
@@ -949,6 +1015,11 @@ def phase_full_path(card, errs, frames):
         raise AssertionError("the kernels' WLS output differs from the "
                              "pipeline's")
     rhs = wc.shift_gather_conf(dl, dr, D)
+    # the library figures: K7's gather alone, K5's histogram alone
+    lab64 = labels.reshape(2 * B, -1).to(torch.int64)
+    ones = torch.ones_like(lab64, dtype=torch.int32)
+    sizes = torch.zeros((2 * B, H * W + 1), dtype=torch.int32,
+                        device=dl.device)
     xs = torch.arange(W, dtype=torch.float32, device=dl.device)
     idx = torch.round(xs - dl).clamp(0, W - 1).to(torch.int64)
     n = 2 * len(wplain.fgs_lambdas(8000.0, 3))
@@ -958,7 +1029,9 @@ def phase_full_path(card, errs, frames):
                            None),
         "speckle_keep": (cuda_ms(lambda: sc.speckle_keep(dm, labels, ws), 5),
                          cuda_ms(lambda: plain.speckle_keep(dm, labels, ws),
-                                 1), None),
+                                 1),
+                         cuda_ms(lambda: sizes.scatter_add_(1, lab64, ones),
+                                 5)),
         "shift_gather": (cuda_ms(lambda: wc.shift_gather_conf(dl, dr, D), 5),
                          cuda_ms(lambda: wplain.shift_gather_conf(dl, dr, D),
                                  2),
@@ -979,11 +1052,14 @@ def phase_full_path(card, errs, frames):
         "shift_gather": bound(16 * px, 10 * px),
         "fgs_pass": bound(20 * px, 23 * px),
     }
+    library = {"shift_gather": "torch.gather, the gather alone",
+               "speckle_keep": "scatter_add_, the histogram alone"}
     for name, (ms, plain_ms, lib_ms) in times.items():
-        lib = f", torch.gather {lib_ms:.3f} ms" if lib_ms else ""
+        lib = f", {library[name]} {lib_ms:.3f} ms" if lib_ms else ""
         log(f"full path [{card}]: {name}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms{lib}, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}) per launch")
+    speckle_split(card, dm, r, ws)
     # the outputs go to the host, so that the shared path's peak memory
     # is its own; the matcher maps and their labels feed the sort family
     return launches, times, bounds, (pipe, {k: v.cpu() for k, v in
@@ -1337,8 +1413,9 @@ def phase_configs(card, errs, frames):
     remap_precision="f32", and with lr_mode="none" and no WLS, each output
     against the plain chain on the pipeline's rectified frames; then the
     stress shape 2560x1440x256 on one frame: K1-K3 and K1's pair mode
-    (timed) against plain, and the fused and the staged matcher (speckle
-    200/2) agreeing."""
+    (timed) against plain, the fused and the staged matcher (speckle
+    200/2) agreeing, and K4/K5 on the matcher's map before the filter
+    against plain (timed)."""
     import torch
     from stereo_depth_ruler_tpu_torch import SGBMParams
     from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
@@ -1439,6 +1516,15 @@ def phase_configs(card, errs, frames):
         raise AssertionError("the fused and the staged chain differ at the "
                              "stress shape")
     del fused, staged
+    # K4 and K5 on the stress frame's matcher map before the filter
+    raw = sc.sgbm_cuda(l, r, params, apply_speckle=False)
+    md, ws = params.speckle_range, params.speckle_window_size
+    labels, _ = check_speckle(raw, md, ws, errs, "stress")
+    ms = (cuda_ms(lambda: sc.speckle_labels(raw, md), 5),
+          cuda_ms(lambda: sc.speckle_keep(raw, labels, ws), 5))
+    log(f"configs [{card}]: stress 1x{H}x{W}: speckle_labels {ms[0]:.4f} "
+        f"ms, speckle_keep {ms[1]:.4f} ms per launch")
+    del raw, labels
     torch.cuda.empty_cache()
 
 

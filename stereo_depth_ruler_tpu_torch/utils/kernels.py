@@ -70,6 +70,9 @@ _SIGNATURES = {
     "sdr_speckle_labels": [_P, _P, _I, _I, _I, _F, _P],
     # disp, labels, sizes, out, B, H, W, max_size, stream
     "sdr_speckle_keep": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same with a sub-launch index before the stream (a timing split)
+    "sdr_speckle_labels_part": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "sdr_speckle_keep_part": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dl, dr, rhs, B, H, W, max_s, lrc_thresh, fill, stream
     "sdr_shift_gather_conf": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # guide, u, out, cp (scratch), B, H, W, rows, lam, sigma, stream

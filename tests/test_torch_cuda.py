@@ -242,32 +242,85 @@ def serpentine(H, W, pitch=2):
     return disp
 
 
-def noisy(H, W, seed):
+def noisy(H, W, seed, B=2):
     rng = np.random.default_rng(seed)
-    d = rng.integers(0, 5, (2, H, W)).astype(np.float32)
+    d = rng.integers(0, 5, (B, H, W)).astype(np.float32)
     d[rng.uniform(size=d.shape) < 0.25] = -1.0
     d[:, H // 4:H // 2, W // 4:W // 2] = 7.5
     return d
 
 
-@pytest.mark.parametrize("case", ["noisy", "serpentine", "all_invalid"])
-def test_speckle_kernels_match_plain(cuda, case):
+def comb(H, W, pitch=3):
+    """A spine along the top row and a tooth down every pitch-th column,
+    disparities alternating by half a pixel from row to row: the teeth
+    cross every tile border, and below the first tile row a tile's
+    pieces (its teeth) meet only through links across its borders."""
+    d = -np.ones((H, W), np.float32)
+    d[:, ::pitch] = 2.0 + 0.5 * (np.arange(H) % 2)[:, None]
+    d[0, :] = 2.0
+    return d
+
+
+def staircase(H, W):
+    """A diagonal staircase one pixel wide: row y holds (y, y) and
+    (y, y + 1), columns modulo W, disparities stepping by half a pixel or
+    one, so each row's run meets the next only through one vertical step."""
+    d = -np.ones((H, W), np.float32)
+    for y in range(H):
+        d[y, [y % W, (y + 1) % W]] = 1.0 + 0.5 * (y % 3)
+    return d
+
+
+def speckle_case(case):
+    """(B, H, W) float32 disparities of a K4/K5 test case."""
     if case == "noisy":
-        d = noisy(96, 160, seed=3)
-    elif case == "serpentine":
+        return noisy(96, 160, seed=3)
+    if case == "serpentine":
         s = serpentine(256, 384)
-        d = np.stack([s, s[::-1, ::-1]])
-    else:
-        d = np.full((2, 40, 64), -1.0, np.float32)
-    disp = torch.tensor(np.ascontiguousarray(d), device=cuda)
-    for max_size in (4, 40):
+        return np.stack([s, s[::-1, ::-1]])
+    if case == "all_invalid":
+        return np.full((2, 40, 64), -1.0, np.float32)
+    if case == "comb":
+        c = comb(200, 400)
+        return np.stack([c, c[::-1, ::-1]])
+    if case == "staircase":
+        s = staircase(256, 384)
+        return np.stack([s, s[::-1]])
+    if case == "constant":
+        return np.full((2, 200, 300), 3.0, np.float32)
+    if case == "row":
+        return noisy(1, 1000, seed=4)
+    if case == "column":
+        return noisy(1000, 1, seed=5)
+    if case == "pixel":
+        return np.array([[[2.0]], [[-1.0]]], np.float32)
+    if case == "ragged":    # H and W not multiples of the tile
+        return noisy(77, 261, seed=6)
+    if case == "batch1":
+        return noisy(96, 160, seed=7, B=1)
+    if case == "batch16":
+        return noisy(720, 1280, seed=8, B=16)
+    assert case == "nan"
+    d = noisy(96, 160, seed=9)
+    d[np.random.default_rng(9).uniform(size=d.shape) < 0.1] = np.nan
+    return d
+
+
+@pytest.mark.parametrize("case", [
+    "noisy", "serpentine", "all_invalid", "comb", "staircase", "constant",
+    "row", "column", "pixel", "ragged", "batch1", "batch16", "nan"])
+def test_speckle_kernels_match_plain(cuda, case):
+    disp = torch.tensor(np.ascontiguousarray(speckle_case(case)),
+                        device=cuda)
+    for max_size in (4, 40, 200):
         labels = sc.speckle_labels(disp, 1.0)
         torch.cuda.synchronize()
         assert torch.equal(labels, plain.speckle_labels(disp, 1.0))
         kept = sc.speckle_keep(disp, labels, max_size)
         torch.cuda.synchronize()
         assert torch.equal(kept, plain.speckle_keep(disp, labels, max_size))
-    if case == "serpentine":
+    if case in ("serpentine", "comb", "staircase", "constant"):
+        # the first frame is one component
         assert torch.unique(labels[0][disp[0] >= 0]).numel() == 1
     capped = sc.speckle_labels(disp, 1.0, max_iters=3)
     torch.cuda.synchronize()

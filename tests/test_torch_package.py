@@ -64,7 +64,9 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "tests/test_torch_cuda.py",
-       "tools/profile_stages_torch.py", "tools/pair_tile_ab.py"]))
+       "tools/profile_stages_torch.py", "tools/pair_tile_ab.py",
+       "tools/speckle_tile_ab.py", "tools/speckle_probe.py",
+       "tools/path_digest.py"]))
 def test_no_jax_package_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "stereo_depth_ruler_tpu"}, roots

@@ -21,6 +21,8 @@ from stereo_depth_ruler_tpu_torch import SGBMParams
 from stereo_depth_ruler_tpu_torch.ops import sgbm as ts
 from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as tc
 from test_speckle_bound import _serpentine
+from test_torch_cuda import comb as _comb
+from test_torch_cuda import staircase as _staircase
 
 PARAMS = SGBMParams(num_disparities=16, block_size=5, p1=72, p2=288,
                     speckle_window_size=20, speckle_range=2)
@@ -70,10 +72,23 @@ def invalid():
     return d
 
 
+def comb():
+    """A comb whose teeth hang from the top row, and its mirror."""
+    d = _comb(48, 160)
+    return np.float32(np.stack([d, d[::-1, ::-1]]))
+
+
+def staircase():
+    """A staircase one pixel wide, rows linked only by vertical steps, and
+    its mirror."""
+    d = _staircase(48, 160)
+    return np.float32(np.stack([d, d[::-1]]))
+
+
 CASES = {"natural": natural, "serpentine": serpentine, "noisy": noisy,
-         "all_invalid": invalid}
+         "all_invalid": invalid, "comb": comb, "staircase": staircase}
 MAX_DIFF = {"natural": 2.0, "serpentine": 1.0, "noisy": 1.0,
-            "all_invalid": 1.0}
+            "all_invalid": 1.0, "comb": 1.0, "staircase": 1.0}
 
 
 def pallas_labels(disp, max_diff, max_iters=0):
