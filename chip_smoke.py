@@ -58,10 +58,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    1, 2 and 3 rounds and converged (equal to K4) on the maps and the
    720x1280 serpentine, its propagate mode, the sorts against
    torch.sort(stable=True) on 16 x 2^20 keys, on the unpadded labels (the
-   top digit constant, its pass skipped; timed beside), the run modes, the
-   compositions, the seeded keep against K5's; then times (kernel,
-   plain, torch.sort for the sorts), the cost of the host's flag reads
-   in a converged sweep, and bounds;
+   top digit constant, its pass skipped; timed beside), the run modes
+   and their compositions on the maps' labels and on the serpentine's,
+   sizes on all-distinct keys, the seeded keep against K5's; then times
+   (kernel, plain, torch.sort for the sorts), the cost of the host's flag
+   reads in a converged sweep, bounds, and the sizes kernel's split: the
+   real keys and source indices, no source indices, distinct keys;
 8. shared path: the full path's configuration with pair_mode="shared"
    (K1's pair mode builds both matchers' volumes in one launch, K3's
    mirror mode runs the right matcher's WTA/LR), at the WLS bar, with
@@ -249,28 +251,15 @@ def phase_build():
                     if name == "cost_pair_strip_kernel"))
     # the sweep kernel's three kernels, by mode (Min: labels, Max:
     # propagate; the init kernel by its link test)
-    sweeps = []
-    for chunk in ptxas.split("Compiling entry function '")[1:]:
-        m = re.search(r"(sweep_init|sweep_rows|sweep_cols)INS_\d+(\w+?)E",
-                      chunk.split("'", 1)[0])
-        n = re.search(r"Used (\d+) registers", chunk)
-        sp = re.search(r"(\d+) bytes spill stores", chunk)
-        if m and n:
-            sweeps.append(f"{m.group(1)}<{m.group(2)}> {n.group(1)} "
-                          f"registers, {sp.group(1) if sp else 0} B spilled")
-    log("ptxas: sweep " + ", ".join(sweeps))
+    log("ptxas: sweep " + ", ".join(ptxas_named(
+        ptxas, r"(sweep_init|sweep_rows|sweep_cols)INS_\d+(\w+?)E")))
     # K4's and K5's three launches each
-    speckle = []
-    for chunk in ptxas.split("Compiling entry function '")[1:]:
-        m = re.search(r"\d(labels_tiles|labels_borders|labels_resolve|"
-                      r"keep_count|keep_add|keep_apply)E",
-                      chunk.split("'", 1)[0])
-        n = re.search(r"Used (\d+) registers", chunk)
-        sp = re.search(r"(\d+) bytes spill stores", chunk)
-        if m and n:
-            speckle.append(f"{m.group(1)} {n.group(1)} registers, "
-                           f"{sp.group(1) if sp else 0} B spilled")
-    log("ptxas: K4/K5 " + ", ".join(speckle))
+    log("ptxas: K4/K5 " + ", ".join(ptxas_named(
+        ptxas, r"\d(labels_tiles|labels_borders|labels_resolve|"
+        r"keep_count|keep_add|keep_apply)E")))
+    # the sorted-run kernel: sizes, keep (runs_sizes<mode>) and roots
+    log("ptxas: sorted_runs " + ", ".join(ptxas_named(
+        ptxas, r"(runs_sizes|runs_roots)(?:ILi(\d)E)?")))
     log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
                                  for name, _, n, sp in entries
                                  if name == "fgs_pass_kernel"))
@@ -288,6 +277,24 @@ def phase_build():
     log("ptxas: at 4 disparities per lane: " + ", ".join(
         f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
         for name, acc, n in d128))
+
+
+def ptxas_named(ptxas, pattern):
+    """'<name> <n> registers, <s> B spilled' for every kernel entry of an
+    nvcc -Xptxas -v report whose mangled name matches ``pattern``: the
+    name is its first group, with its second, where one matched, in
+    angle brackets."""
+    out = []
+    for chunk in ptxas.split("Compiling entry function '")[1:]:
+        m = re.search(pattern, chunk.split("'", 1)[0])
+        n = re.search(r"Used (\d+) registers", chunk)
+        sp = re.search(r"(\d+) bytes spill stores", chunk)
+        if m and n:
+            arg = m.group(2) if m.re.groups > 1 else None
+            out.append(f"{m.group(1)}{f'<{arg}>' if arg else ''} "
+                       f"{n.group(1)} registers, "
+                       f"{sp.group(1) if sp else 0} B spilled")
+    return out
 
 
 def ptxas_entries(ptxas):
@@ -1139,17 +1146,26 @@ def phase_sort_family(card, errs, maps, r, ws):
     hold("radix_sort_pairs", got[0], want)
     hold("radix_sort_pairs", got[1], torch.gather(pos_flat, 1, idx))
     del want, idx, got
-    hold("sorted_runs_sizes", soc.run_sizes(skey), splain.run_sizes(skey))
-    hold("sorted_runs_sizes", soc.run_sizes(skey, sidx, n),
-         splain.run_sizes(skey, sidx, n))
     hold("sorted_runs_sizes", counts, splain.equal_value_counts(labels))
-    hold("sorted_runs_keep", soc.run_keep(skey, sidx, n, ws),
-         splain.run_keep(skey, sidx, n, ws))
-    hold("sorted_runs_keep", soc.speckle_keep_sorted(labels, ws),
-         splain.speckle_keep_sorted(labels, ws))
     hold("sorted_runs_keep", kept, plain.speckle_filter(dm, dm >= 0, ws, r, 3))
-    hold("sorted_runs_roots", soc.large_run_roots(skey, n2, L, ws),
-         splain.large_run_roots(skey, n2, L, ws))
+    # the three run modes on the maps' labels and on the serpentine's (one
+    # component over most of each frame: runs across many tiles)
+    for lab in (labels, ls):
+        k, nl, n2l, Ll, _ = splain.pack_batched(lab)
+        sk, si = soc.sort_pairs(k, splain.positions(k))
+        hold("sorted_runs_sizes", soc.run_sizes(sk), splain.run_sizes(sk))
+        hold("sorted_runs_sizes", soc.run_sizes(sk, si, nl),
+             splain.run_sizes(sk, si, nl))
+        hold("sorted_runs_keep", soc.run_keep(sk, si, nl, ws),
+             splain.run_keep(sk, si, nl, ws))
+        hold("sorted_runs_keep", soc.speckle_keep_sorted(lab, ws),
+             splain.speckle_keep_sorted(lab, ws))
+        hold("sorted_runs_roots", soc.large_run_roots(sk, n2l, Ll, ws),
+             splain.large_run_roots(sk, n2l, Ll, ws))
+    # all keys distinct: no run crosses a tile edge (the split below)
+    distinct = splain.positions(key)
+    hold("sorted_runs_sizes", soc.run_sizes(distinct, sidx, n),
+         splain.run_sizes(distinct, sidx, n))
     hold("sweep_propagate", seeded, plain.speckle_keep_seeded(labels, ws))
     # on converged labels the seeded keep is K5's keep of the valid pixels
     hold("sweep_propagate", seeded, sc.speckle_keep(dm, labels, ws) >= 0)
@@ -1215,18 +1231,29 @@ def phase_sort_family(card, errs, maps, r, ws):
         f"flag reads cost {(conv - capped) / rounds_prop:.4f} ms per round")
     # bytes: each input read once, each output written once. Operations:
     # the sweep ~6 per pixel, sweep and round; the sort ~4 per key and
-    # pass; the run scans a binary search of log2(n2) steps each way, ~3
-    # operations a step
-    steps = n2.bit_length()
+    # pass; the run scans ~8 per key (the head test, its ballot, the bit
+    # scans for the run's ends, the size)
     bounds = {
         "sweep_labels": bound(8 * px, 6 * 4 * rounds_lab * px),
         "sweep_propagate": bound(12 * px, 6 * 4 * rounds_prop * px),
         "radix_sort_keys": bound(8 * keys, 16 * keys),
         "radix_sort_pairs": bound(16 * keys, 16 * keys),
-        "sorted_runs_sizes": bound(8 * keys + 4 * B * n, 6 * steps * keys),
-        "sorted_runs_keep": bound(8 * keys + B * n, 6 * steps * keys),
+        "sorted_runs_sizes": bound(8 * keys + 4 * B * n, 8 * keys),
+        "sorted_runs_keep": bound(8 * keys + B * n, 8 * keys),
         "sorted_runs_roots": bound(4 * keys + 4 * B * R * slots, 4 * keys),
     }
+    # the sizes kernel three ways: (a) the real keys and source indices,
+    # (b) no source indices (coalesced stores), (c) all keys distinct (no
+    # run crosses a tile edge); (a) - (b) is the scatter's cost, (a) - (c)
+    # the tile-edge searches'
+    split = [cuda_ms(lambda: soc.run_sizes(skey, sidx, n), 10),
+             cuda_ms(lambda: soc.run_sizes(skey), 10),
+             cuda_ms(lambda: soc.run_sizes(distinct, sidx, n), 10)]
+    log(f"sort family [{card}]: sorted_runs_sizes split at {B}x{n2} keys: "
+        f"(a) keys and sidx {split[0]:.4f} ms, (b) no sidx {split[1]:.4f} "
+        f"ms (bound {bound(8 * keys, 0)[0]:.4f}), (c) distinct keys "
+        f"{split[2]:.4f} ms: scatter {split[0] - split[1]:.4f} ms, edge "
+        f"searches {split[0] - split[2]:.4f} ms")
     log(f"sort family [{card}]: radix sort of {B}x{n2} unpadded labels "
         f"(top pass skipped): keys {cuda_ms(lambda: soc.sort_keys(flat), 5):.3f} ms, pairs "
         f"{cuda_ms(lambda: soc.sort_pairs(flat, pos_flat), 5):.3f} ms, "

@@ -459,6 +459,104 @@ def test_sort_kernels_match_plain(cuda, case):
                                                      max_iters))
 
 
+TILE = 2048   # sorted_runs.cu's tile of sorted positions (runs_sizes)
+
+
+def sorted_runs(lengths, first=0, gap=1, n=None):
+    """Sorted keys made of runs of the given lengths, the values ``first``,
+    ``first + gap``, ...; with ``n``, the first n of them."""
+    lengths = np.asarray(lengths)
+    if n is not None:
+        lengths = lengths[:np.searchsorted(np.cumsum(lengths), n) + 1]
+    keys = np.repeat(first + gap * np.arange(len(lengths), dtype=np.int64),
+                     lengths)
+    return keys[:n]
+
+
+def runs_case(case):
+    """(B, N) sorted int32 keys of a sorted_runs.cu edge case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    T = TILE
+    lengths = {"T-1": T - 1, "T": T, "T+1": T + 1, "3T+5": 3 * T + 5,
+               "N=1": 1}
+    if case in lengths:   # mixed runs, short to longer than a tile
+        N = lengths[case]
+        keys = [sorted_runs(rng.choice([1, 2, 3, 50, 700, 5000], N),
+                            int(rng.integers(0, 100)),
+                            int(rng.integers(1, 1000)), N)
+                for _ in range(2)]
+    elif case == "long_run":    # a run over five tiles, crossing six edges
+        N = 9 * T + 7
+        keys = [sorted_runs([3, 10, 5 * T + 11, 1, 2, N], n=N),
+                sorted_runs([T - 5, 1, 6 * T, N], 4, n=N)]
+    elif case == "start_on_last_key":
+        # runs starting on tile 0's and tile 1's last key (lengths T and 1)
+        N = 5 * T
+        keys = [sorted_runs([T - 1, T, 1, 1, T - 3, 2 * T + 2]),
+                sorted_runs([2 * T - 1, 1, T, 2 * T], 9)]
+    elif case == "distinct":
+        N = 3 * T + 5
+        keys = [np.arange(N) * 7 + 3, np.arange(N)]
+    elif case == "equal":
+        N = 3 * T + 5
+        keys = [np.full(N, 12345), np.zeros(N)]
+    elif case == "first_key_2^30-1":   # position 0 starts no run (roots)
+        N = 2 * T
+        keys = [sorted_runs([T + 3, T - 3], 2 ** 30 - 1),
+                sorted_runs([1, N - 1], 2 ** 30 - 1)]
+    elif case == "wide":        # keys anywhere in [0, 2**31)
+        N = 2 * T + 3
+        keys = [np.sort(np.concatenate([
+            rng.integers(0, 2 ** 31 - 1, N - N // 2),
+            np.repeat(rng.integers(0, 2 ** 31 - 1, 3), [N // 2 - 2, 1, 1])]))
+            for _ in range(2)]
+    else:                       # the full path's 16 x 2**20 packed frames
+        assert case == "batch16"
+        N, n = 1 << 20, 921600
+        keys = [np.concatenate([sorted_runs(
+            np.minimum(rng.zipf(1.3, n), 200000), 0, 3, n),
+            np.full(N - n, 2 ** 30)]) for _ in range(16)]
+    return np.stack(keys).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [
+    "T-1", "T", "T+1", "3T+5", "N=1", "long_run", "start_on_last_key",
+    "distinct", "equal", "first_key_2^30-1", "wide", "batch16"])
+def test_sorted_runs_edges(cuda, case):
+    """The sorted-run kernel's three modes at lengths around its tile of
+    2048 positions and N = 1, on runs longer than several tiles, runs that
+    start on a tile's last key, all keys distinct or equal, a first key of
+    2**30 - 1, keys over [0, 2**31) and 16 x 2**20 keys, against
+    ops/sort.py bitwise: sizes with and without source indices (targets
+    below 0 and at or past n dropped), keep and roots at max_size 0, 200,
+    256, 257 (the largest staged look-ahead and one past it), L and N, at
+    the largest L <= 1024 that divides N and at L = N."""
+    skey = torch.tensor(runs_case(case), device=cuda)
+    B, N = skey.shape
+    g = torch.Generator(device="cuda").manual_seed(N)
+    perm = torch.argsort(torch.rand((B, N), generator=g, device=cuda),
+                         dim=1).to(torch.int32)
+    n = max(N - N // 4, 1)
+    # targets at or past n are dropped; half of them made negative
+    neg = (perm >= n) & (torch.rand((B, N), generator=g, device=cuda) < 0.5)
+    sidx = torch.where(neg, -1 - perm, perm)
+    got = sort_cuda.run_sizes(skey)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sortp.run_sizes(skey))
+    assert torch.equal(sort_cuda.run_sizes(skey, sidx, n),
+                       sortp.run_sizes(skey, perm, n))
+    L = max(d for d in range(1, min(N, 1024) + 1) if N % d == 0)
+    for max_size in (0, 200, 256, 257, L, N):
+        assert torch.equal(sort_cuda.run_keep(skey, sidx, n, max_size),
+                           sortp.run_keep(skey, perm, n, max_size))
+        for rows in (L, N):
+            assert torch.equal(
+                sort_cuda.large_run_roots(skey, N, rows, max_size),
+                sortp.large_run_roots(skey, N, rows, max_size)), (max_size,
+                                                                  rows)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("B,N", [(1, 1), (3, 777), (2, 4095), (2, 4096),
                                  (2, 4097), (2, 2048 * 3 + 5), (2, 1 << 20),
                                  (16, 1 << 20)])

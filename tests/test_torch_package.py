@@ -66,7 +66,7 @@ def _imported_roots(path):
     + ["chip_smoke.py", "tests/test_torch_cuda.py",
        "tools/profile_stages_torch.py", "tools/pair_tile_ab.py",
        "tools/speckle_tile_ab.py", "tools/speckle_probe.py",
-       "tools/path_digest.py"]))
+       "tools/sorted_runs_probe.py", "tools/path_digest.py"]))
 def test_no_jax_package_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "stereo_depth_ruler_tpu"}, roots

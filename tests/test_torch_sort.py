@@ -32,17 +32,27 @@ from test_speckle_bound import _serpentine
 # R = 4 rows of L = 1024, the others into one row
 SHAPES = {"8x128": (1, 8, 128), "23x41": (1, 23, 41), "40x70": (1, 40, 70),
           "3x24x40": (3, 24, 40)}
+# a packed frame of several of sorted_runs.cu's 2048-position tiles (n2 =
+# 8192, R = 8): frame 0 holds one label on 3000 pixels, whose sorted run
+# crosses the tile edge at 4096, frame 1 one label everywhere, a run of
+# the whole frame
+TILED = {"2x64x128": (2, 64, 128)}
 
 
 def labels_of(case, hi=None):
     """Seeded int32 labels with repeats, a quarter of them the sentinel H*W
-    (invalid pixels), and a few large keys below 2**30."""
-    B, H, W = SHAPES[case]
+    (invalid pixels), and a few large keys below 2**30 (and the TILED
+    cases' long runs)."""
+    B, H, W = {**SHAPES, **TILED}[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     lab = rng.integers(0, hi or max(H * W // 8, 2), (B, H, W))
     lab[rng.uniform(size=lab.shape) < 0.25] = H * W
     lab.flat[rng.integers(0, lab.size, 3)] = [2 ** 30 - 1, 2 ** 29,
                                               2 ** 24 + 5]
+    if case in TILED:
+        lab[0].flat[rng.choice(H * W, 3000, replace=False)] = (hi or
+                                                               H * W // 8) // 2
+        lab[1] = 7
     return lab.astype(np.int32)
 
 
@@ -175,9 +185,10 @@ def test_sort_pairs_vs_bitonic_staged_and_fused(case):
     assert torch.equal(got[0], skey) and torch.equal(got[1], sval)
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SHAPES) + sorted(TILED))
 def test_run_sizes_vs_sizes_scan(case):
-    """Row 10's sizes_sorted on the JAX pair sort's output, tolerance 0."""
+    """Row 10's sizes_sorted on the JAX pair sort's output, tolerance 0;
+    at 2x64x128 a run crosses a tile edge and one spans the frame."""
     key, n, n2, L, R = packed(case)
     pos = so.positions(key)
     jk, jv = jax_sort_staged(key.numpy(), pos.numpy(), n2=n2, L=L)
@@ -186,6 +197,8 @@ def test_run_sizes_vs_sizes_scan(case):
     got = so.run_sizes(skey)
     np.testing.assert_array_equal(got.numpy(), want.reshape(got.shape))
     assert torch.equal(sc.run_sizes(skey), got)
+    if case in TILED:   # the runs the case is made of
+        assert got[0, 4095] == got[0, 4096] >= 3000 and (got[1] == n2).all()
     # written back through the (tie-independent) source indices
     through = so.run_sizes(skey, torch.tensor(jv), n)
     assert torch.equal(sc.run_sizes(skey, torch.tensor(jv), n), through)
@@ -231,7 +244,7 @@ def test_speckle_keep_sorted_vs_pallas(max_size):
 
 
 @pytest.mark.parametrize("max_size", [3, 8, 50])
-@pytest.mark.parametrize("case", ["40x70", "3x24x40"])
+@pytest.mark.parametrize("case", ["40x70", "3x24x40", "2x64x128"])
 def test_sorted_labels_and_large_run_roots(case, max_size):
     """sorted_labels and row 7's roots, tolerance 0: the port's ``slots``
     columns equal JAX's first ``slots``, JAX's lane padding is all -1. The
