@@ -83,7 +83,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3
    and K1's pair mode against their plain versions (the pair mode timed),
    the fused and staged matcher equal, and K4/K5 on the matcher's map
-   against their plain versions, bitwise, and timed.
+   against their plain versions, bitwise, and timed;
+10. sharded (stereo_depth_ruler_tpu_torch/parallel): a world of one NCCL
+   rank on the mesh (1, 1, 1); sgbm_sharded on one bench frame (speckle
+   200/2) equal to sgbm_cuda, launching K1, K2 x8, K3 (through the tile
+   matcher K9, sgbm_tile_cuda) and K4/K5 once each; pipeline_step_sharded
+   at batch 8 with rects and WLS, its disparity and xyz equal to the
+   frame-by-frame composition of the port's functions, launching K1-K3,
+   K9, K6 and K7, at the WLS bar, timed in turns with the full path, and
+   its peak memory; K9 in this process at 2 tiles with a full-coverage
+   halo equal to the whole frame, at halo 64 on 2 and 4 tiles within
+   max |err| 1/16 px and an exact fraction of 0.9999, sgbm_tile_cuda
+   against plain.sgbm_tile bitwise on slabs with halos of 0, 8 and 64
+   (zero rows beyond the image included), timed; then ms and peak memory
+   per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -151,6 +164,10 @@ KERNELS = {
         "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:481"),
     "transpose_dhw": ("stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
                       "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:511"),
+    # K9, the tile matcher: sgbm_tile_cuda runs K2 (sgm_pass.cu) and K3
+    # (wta_lr.cu) on a slab that K1 builds
+    "sgbm_tile": ("stereo_depth_ruler_tpu_torch/ops/sgbm_cuda.py",
+                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1095"),
 }
 # the pair modes, launched only by the shared path
 PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
@@ -728,10 +745,17 @@ def check_output(out, gts, D, tag):
               "right_rectified": (B, H, W), "frame_stats": (B, 3)}
     if shapes != expect:
         raise AssertionError(f"output shapes {shapes} != {expect}")
-    disp = out["disparity"].cpu().numpy()
-    if not np.isfinite(disp).all() or not np.isfinite(
-            out["frame_stats"][:, :2].cpu().numpy()).all():
-        raise AssertionError("non-finite disparity or stats")
+    if not np.isfinite(out["frame_stats"][:, :2].cpu().numpy()).all():
+        raise AssertionError("non-finite stats")
+    return accuracy(out["disparity"], gts, D, tag)
+
+
+def accuracy(disp, gts, D, tag):
+    """(valid fraction, MAE) of finite (B, H, W) disparity maps against the
+    ground truth outside the left D columns (no partner there)."""
+    disp = disp.cpu().numpy()
+    if not np.isfinite(disp).all():
+        raise AssertionError("non-finite disparity")
     d, g = disp[..., D:], gts[..., D:]
     ok = d >= 0
     vfrac = float(ok.mean())
@@ -1555,6 +1579,240 @@ def phase_configs(card, errs, frames):
     torch.cuda.empty_cache()
 
 
+def _slab(C, start, local, top, bottom):
+    """Rows [start - top, start + local + bottom) of a (1, H, W, D) volume,
+    zero rows where they lie outside it."""
+    import torch
+    H = C.shape[1]
+    z = torch.zeros_like(C[:, :1])
+    rows = [C[:, max(start - top, 0):min(start + local + bottom, H)]]
+    rows = ([z.expand(-1, max(top - start, 0), -1, -1)] + rows
+            + [z.expand(-1, max(start + local + bottom - H, 0), -1, -1)])
+    return torch.cat(rows, dim=1).contiguous()
+
+
+def phase_sharded(card, errs, frames, full_pipe):
+    """The sharded path (stereo_depth_ruler_tpu_torch/parallel) on a world
+    of one NCCL rank and the mesh (1, 1, 1), and the tile matcher (K9) in
+    this process at 2 and 4 tiles: (1) sgbm_sharded on one bench frame,
+    equal to sgbm_cuda, launching K1, K2 x8, K3, K4 and K5 once each; (2)
+    pipeline_step_sharded at batch 8 with rects and WLS, equal frame by
+    frame to the composition of the port's own functions (remap,
+    sgbm_cuda on the pair and on the mirrored, swapped pair, the WLS
+    filter, reproject), launching K1-K3, K9, K6 and K7, at the WLS bar,
+    timed in turns with the full path; (3) 2 tiles with a full-coverage
+    halo equal to the whole frame, halo 64 at 2 and 4 tiles within the
+    halo-32 bound of the JAX package's HALO_r04.jsonl (max |err| <= 1/16
+    px, exact fraction >= 0.9999), sgbm_tile_cuda against plain.sgbm_tile
+    on slabs with halos of 0, 8 and 64 (zero rows beyond the image
+    included); (4) ms and peak memory per tile at 720x1280x128 and
+    2560x1440x256 for 1, 2 and 4 tiles. Returns the counted step's
+    launches and K9's time and bound."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    from stereo_depth_ruler_tpu_torch.ops.remap import (build_remap_grids,
+                                                        remap_bilinear)
+    from stereo_depth_ruler_tpu_torch.ops.reproject import reproject_to_3d
+    from stereo_depth_ruler_tpu_torch.parallel import (
+        make_mesh, pipeline_step_sharded, sgbm_sharded)
+    from stereo_depth_ruler_tpu_torch.parallel.sharded import (
+        _sgbm_cuda_tile, _tile_halo)
+    rig, lefts, rights, gts = frames
+    B, H, W = lefts.shape
+    D = MAIN[3]
+    params = SGBMParams(num_disparities=D, block_size=5,
+                        speckle_window_size=200, speckle_range=2)
+    l0 = torch.tensor(np.float32(lefts[0]), device=DEVICE)
+    r0 = torch.tensor(np.float32(rights[0]), device=DEVICE)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(1, 1, 1)
+            log(f"sharded: a world of 1 ({dist.get_backend()}), mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            # (1) the matcher on the mesh
+            sgbm_sharded(l0, r0, params, mesh)
+            torch.cuda.synchronize()
+            sc.reset_launch_counts()
+            got = sgbm_sharded(l0, r0, params, mesh)
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in sc.LAUNCHES.items() if v}
+            want = sc.sgbm_cuda(l0[None], r0[None], params)[0]
+            log(f"sharded: sgbm_sharded 1x{H}x{W}x{D}, speckle 200/2, "
+                f"launches {ran}; equal to sgbm_cuda: "
+                f"{torch.equal(got, want)} (valid "
+                f"{float((want >= 0).float().mean()):.4f})")
+            if not torch.equal(got, want):
+                raise AssertionError("sgbm_sharded differs from sgbm_cuda")
+            if ran != {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
+                       "sgbm_tile": 1, "speckle_labels": 1,
+                       "speckle_keep": 1}:
+                raise AssertionError(f"sgbm_sharded ran {ran}")
+
+            # (2) the pipeline step at batch 8, full width
+            grids = build_remap_grids(rig, DEVICE)
+
+            def step():
+                return pipeline_step_sharded(lefts, rights, rig.Q, params,
+                                             mesh, rects=grids, use_wls=True)
+
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sc.reset_launch_counts()
+            wc.reset_launch_counts()
+            out = step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {**sc.LAUNCHES, **wc.LAUNCHES}
+            log(f"sharded step launches: {launches}")
+            step_kernels = {"cost_box", "sgm_pass", "wta_lr", "sgbm_tile",
+                            "fgs_pass", "shift_gather"}
+            if {k for k, v in launches.items() if v} != step_kernels:
+                raise AssertionError(f"the sharded step ran {launches}")
+            turns = in_turns_ms([step,
+                                 lambda: full_pipe.process_batch(lefts,
+                                                                 rights)],
+                                reps=3)
+        finally:
+            dist.destroy_process_group()
+
+    disp, xyz = out["disparity"], out["xyz"]
+    same = True
+    for i in range(B):
+        l = remap_bilinear(torch.tensor(np.float32(lefts[i]), device=DEVICE),
+                           grids[0])
+        r = remap_bilinear(torch.tensor(np.float32(rights[i]),
+                                        device=DEVICE), grids[1])
+        dl = sc.sgbm_cuda(l[None], r[None], params, apply_speckle=False)
+        dr = sc.sgbm_cuda(r.flip(-1)[None].contiguous(),
+                          l.flip(-1)[None].contiguous(), params,
+                          apply_speckle=False).flip(-1).contiguous()
+        f, _ = wc.wls_disparity_filter_cuda(dl, dr, l[None], max_disp=D)
+        x = reproject_to_3d(f[0], rig.Q)
+        same &= bool(torch.equal(disp[i], f[0])) and bool(
+            ((xyz[i] == x) | (xyz[i].isnan() & x.isnan())).all())
+    log(f"sharded step: {B}x{H}x{W}x{D}, rects, WLS: disparity and xyz "
+        f"equal to the frame-by-frame composition: {same}")
+    if not same:
+        raise AssertionError("pipeline_step_sharded differs from the "
+                             "composition of the port's functions")
+    vfrac, mae = accuracy(disp, gts, D, "sharded step (bar valid > 0.95, "
+                          "MAE < 0.7)")
+    if not (vfrac > 0.95 and mae < 0.7):
+        raise AssertionError(f"WLS accuracy bar missed: valid {vfrac}, "
+                             f"MAE {mae}")
+    for tag, t in zip(("sharded step", "full path (StereoPipeline)"), turns):
+        ms = sum(t) / len(t)
+        log(f"sharded [{card}]: batch {B}, {tag}: {ms:.3f} ms per batch "
+            f"(turns {', '.join(f'{x:.3f}' for x in t)}) -> "
+            f"{B * 1000.0 / ms:.2f} frames/s")
+    log(f"sharded [{card}]: step peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated, frames matched one at a time)")
+    del out, disp, xyz
+    torch.cuda.empty_cache()
+
+    # (3) K9 in this process, tile by tile, on the bench frame
+    flat = SGBMParams(num_disparities=D, block_size=5, speckle_window_size=0)
+    whole = sc.sgbm_cuda(l0[None], r0[None], flat)[0]
+    for n_tile, halo in ((2, H // 2), (2, 64), (4, 64)):
+        h = H // n_tile
+        tiles = torch.cat([_sgbm_cuda_tile(l0, r0, flat, k, n_tile, h, halo)
+                           for k in range(n_tile)])
+        torch.cuda.synchronize()
+        both = (tiles >= 0) & (whole >= 0)
+        diff = (tiles - whole).abs()[both]
+        exact = float((tiles == whole).double().mean())
+        err = float(diff.max()) if diff.numel() else 0.0
+        flips = int(((tiles >= 0) != (whole >= 0)).sum())
+        log(f"sharded K9 [{card}]: {n_tile} tiles of {h} rows, halo {halo} "
+            f"(rounded {_tile_halo(n_tile, h, halo)}): "
+            f"exact fraction {exact:.7f} (of both-valid pixels "
+            f"{float((diff == 0).double().mean()):.7f}), max|err| {err} px, "
+            f"validity flips {flips}")
+        if halo >= h and not torch.equal(tiles, whole):
+            raise AssertionError("K9 with a full-coverage halo differs from "
+                                 "the whole frame")
+        if exact < 0.9999 or err > 1.0 / 16:
+            raise AssertionError(f"K9 halo {halo} at {n_tile} tiles past the "
+                                 f"bound: exact {exact}, max|err| {err}")
+    cap = flat.pre_filter_cap
+    C_full = sc.cost_volume(plain.sobel_clip(l0[None], cap).contiguous(),
+                            plain.sobel_clip(r0[None], cap).contiguous(),
+                            flat)
+    err = 0.0
+    q = H // 4
+    for start, local, top, bottom in ((0, H, 0, 0), (0, q, 64, 64),
+                                      (q, 2 * q, 8, 64), (3 * q, q, 64, 8),
+                                      (2 * q, q, 0, 8), (0, 2 * q, 8, 0)):
+        C = _slab(C_full, start, local, top, bottom)
+        for apply_lr in (True, False):
+            got = sc.sgbm_tile_cuda(C, flat, top, bottom, apply_lr)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, plain.sgbm_tile(C, flat, top, bottom,
+                                                 apply_lr))
+            err = max(err, e)
+        log(f"sharded K9: slab rows {start}-{start + local} of {H}, halos "
+            f"{top}/{bottom}: max|err| vs plain.sgbm_tile {e}")
+    errs["sgbm_tile"] = err
+    if err:
+        raise AssertionError("sgbm_tile_cuda differs from plain.sgbm_tile")
+    C = C_full
+    times = {"sgbm_tile": (
+        cuda_ms(lambda: sc.sgbm_tile_cuda(C, flat), 5),
+        cuda_ms(lambda: plain.sgbm_tile(C, flat), 1), None)}
+    el = H * W * D
+    # the slab read once, the disparity written once; ~8 operations per
+    # element and direction (K2) and ~4 for the WTA/LR (K3)
+    bounds = {"sgbm_tile": bound(2 * el + 4 * H * W, (8 * 8 + 4) * el)}
+    log(f"sharded [{card}]: sgbm_tile on the step's 1x{H}x{W}x{D} slab: "
+        f"kernel {times['sgbm_tile'][0]:.3f} ms, plain "
+        f"{times['sgbm_tile'][1]:.3f} ms, bound "
+        f"{bounds['sgbm_tile'][0]:.3f} ms ({bounds['sgbm_tile'][1]})")
+    del C, C_full, whole
+    torch.cuda.empty_cache()
+
+    # (4) ms and peak memory per tile (slab build + K9), halo 64
+    for Hs, Ws, Ds in (KERNEL_SHAPES[-1], STRESS):
+        if (Hs, Ws) == (H, W):
+            l, r = l0, r0
+        else:
+            pl, pr = _pair(Hs, Ws, 77, seed=5)
+            l, r = (torch.tensor(a[0], device=DEVICE) for a in (pl, pr))
+        p = SGBMParams(num_disparities=Ds, block_size=5,
+                       speckle_window_size=0)
+        for n_tile in (1, 2, 4):
+            h = Hs // n_tile
+            k = min(1, n_tile - 1)      # an inner tile where there is one
+
+            def tile():
+                return _sgbm_cuda_tile(l, r, p, k, n_tile, h, 64)
+
+            ms = cuda_ms(tile, 3)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tile()
+            torch.cuda.synchronize()
+            mem = torch.cuda.max_memory_allocated() - base
+            M = h + 2 * _tile_halo(n_tile, h, 64)
+            log(f"sharded tiles [{card}]: {Ws}x{Hs}x{Ds}, {n_tile} tiles, "
+                f"tile {k}: {M}-row slab, {ms:.3f} ms per tile, peak memory "
+                f"{mem / 2**30:.3f} GiB per tile")
+        del l, r
+        torch.cuda.empty_cache()
+    return launches, times, bounds
+
+
 def profile_path(card, pipe, frames, reps=3):
     """Device time by kernel over ``reps`` batches of the path, and the
     share of the wall time the device was busy (one stream, so the sum of
@@ -1609,18 +1867,23 @@ def main():
     profile_path(card, stacked[0], frames)
     launches3, times3, bounds3, pipe = phase_shared_path(card, errs, frames,
                                                          stacked)
+    full_pipe = stacked[0]
     del stacked
     profile_path(card, pipe, frames)
     del pipe
     torch.cuda.empty_cache()
     phase_configs(card, errs, frames)
+    launches6, times6, bounds6 = phase_sharded(card, errs, frames, full_pipe)
+    del full_pipe
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})
     launches.update({k: launches4[k] for k in SORT_FAMILY})
     launches.update({k: launches5[k] for k in (*STAGED_CHAIN, *TRANSPOSES)})
-    times = {**times1, **times2, **times3, **times4, **times5}
-    bounds = {**bounds1, **bounds2, **bounds3, **bounds4, **bounds5}
+    launches["sgbm_tile"] = launches6["sgbm_tile"]
+    times = {**times1, **times2, **times3, **times4, **times5, **times6}
+    bounds = {**bounds1, **bounds2, **bounds3, **bounds4, **bounds5,
+              **bounds6}
 
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],

@@ -31,6 +31,11 @@ separate passes the horizontal and the up-going sums, and ``wta_lr3`` takes
 the three. ``transpose_vol``, ``transpose_leading`` and
 ``transpose_dhw_to_wdh`` are the plain versions of the volume transposes
 (csrc/transpose.cu); the port's own layout needs none of them.
+
+``sgbm_tile`` is the matcher on a row slab of the cost volume with halo
+rows above and below: the per-tile matcher of the sharded path
+(``parallel/sharded.py``), the plain counterpart of the JAX package's
+``sgbm_tile_pallas``.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "propagate_keep", "speckle_keep_seeded", "speckle_filter", "sgbm",
            "compute_disparity_pair", "cost_volume_pair", "sgbm_pair",
            "down_dirs", "up_dirs", "cost_down", "wta_lr3", "sgbm_staged",
-           "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh"]
+           "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
+           "sgbm_tile"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -469,12 +475,18 @@ def speckle_filter(disp: torch.Tensor, valid: torch.Tensor, max_size: int,
 
 def sgbm(left: torch.Tensor, right: torch.Tensor,
          params: SGBMParams = SGBMParams(),
-         apply_lr: bool = True, apply_speckle: bool = True) -> torch.Tensor:
+         apply_lr: bool = True, apply_speckle: bool = True,
+         aggregator=None) -> torch.Tensor:
     """Full SGBM on (..., H, W) images -> float32 disparity, invalid -1.0:
-    WTA, then the LR check, then the speckle filter."""
+    WTA, then the LR check, then the speckle filter.
+
+    ``aggregator(cost, P1, P2, num_paths)``, where given, takes the place
+    of ``aggregate_paths``: it gets the (..., H, W, D) float32 cost volume
+    and returns the path sum S of the same shape."""
     cap = params.pre_filter_cap
     C = cost_volume(sobel_clip(left, cap), sobel_clip(right, cap), params)
-    S = aggregate_paths(C, params.P1, params.P2, params.num_paths)
+    agg = aggregator or aggregate_paths
+    S = agg(C, params.P1, params.P2, params.num_paths)
     return wta_lr_speckle(S, params, apply_lr, apply_speckle)
 
 
@@ -494,14 +506,16 @@ def wta_lr_speckle(S: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
 
 
 def compute_disparity_pair(left: torch.Tensor, right: torch.Tensor,
-                           params: SGBMParams = SGBMParams()
+                           params: SGBMParams = SGBMParams(),
+                           aggregator=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Left and right disparity maps of (..., H, W) pairs: the right
     matcher is the left matcher on mirrored, swapped inputs
     (cv::ximgproc::createRightMatcher), so right-view disparities come
-    out positive."""
-    disp_l = sgbm(left, right, params)
-    disp_r = sgbm(right.flip(-1), left.flip(-1), params).flip(-1)
+    out positive. ``aggregator`` goes to both ``sgbm`` calls."""
+    disp_l = sgbm(left, right, params, aggregator=aggregator)
+    disp_r = sgbm(right.flip(-1), left.flip(-1), params,
+                  aggregator=aggregator).flip(-1)
     return disp_l, disp_r
 
 
@@ -598,3 +612,39 @@ def sgbm_staged(left: torch.Tensor, right: torch.Tensor,
     S_up = _sum_passes(C, up_dirs(params.num_paths), params)
     return wta_lr_speckle(S_down + S_up + S_h, params, apply_lr,
                           apply_speckle)
+
+
+def _tile_local(M: int, params: SGBMParams, top_halo: int,
+                bottom_halo: int) -> int:
+    """The tile's own rows in an M-row slab; ValueError for a slab or a
+    parameter set the tile matcher does not take."""
+    if params.num_paths < 4:
+        raise ValueError("the tile matcher needs 4 or 8 paths, got "
+                         f"{params.num_paths}")
+    local = M - top_halo - bottom_halo
+    if min(top_halo, bottom_halo) < 0 or local < 1:
+        raise ValueError(f"halos {top_halo}, {bottom_halo} leave no rows of "
+                         f"a {M}-row slab")
+    return local
+
+
+def sgbm_tile(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
+              bottom_halo: int = 0, apply_lr: bool = True) -> torch.Tensor:
+    """The matcher on a row slab of a cost volume: ``C`` is (..., M, W, D)
+    with M = top_halo + local + bottom_halo, the halo rows taken from the
+    neighbouring tiles, or zero cost where they lie outside the image
+    (zero cost rows are a fixed point of the DP update, so they reproduce
+    the fresh path start of the whole frame). The horizontal paths run on
+    the rows below the top halo, the down-going paths over all M rows, the
+    up-going paths and the WTA/LR on the rows below the top halo, starting
+    at the bottom halo. Returns the (..., local, W) float32 disparity of
+    the tile's own rows, -1.0 where invalid. Needs 4 or 8 paths, as the
+    JAX package's ``sgbm_tile_pallas`` does."""
+    local = _tile_local(C.shape[-3], params, top_halo, bottom_halo)
+    C = C.to(torch.float32)
+    body = C[..., top_halo:, :, :]
+    S = _sum_passes(body, [(0, 1), (0, -1)] + up_dirs(params.num_paths),
+                    params)
+    S += _sum_passes(C, down_dirs(params.num_paths),
+                     params)[..., top_halo:, :, :]
+    return wta_lr(S, params, apply_lr)[..., :local, :]

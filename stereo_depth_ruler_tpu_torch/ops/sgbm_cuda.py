@@ -38,13 +38,19 @@ runs the same matcher on int16 partial path sums:
 (csrc/transpose.cu) are the JAX package's three volume transposes; the
 port's layout needs none of them, the stage profiler times them.
 
+``sgbm_tile_cuda`` (K9, the JAX package's ``sgbm_tile_pallas``) is the
+per-tile matcher of the sharded path: K2 and K3 on a row slab of the cost
+volume with halo rows, which K1 builds (``parallel/sharded.py``). It needs
+no kernel of its own: K2 and K3 take a slab of any height.
+
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
 ``ops/sgbm.py``; a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches per wrapper and mode (``cost_box_pair`` and
 ``wta_lr_mirror`` are the pair modes, ``sweep_labels`` and
 ``sweep_propagate`` the sweep kernel's two, ``sgm_pass_i16`` K2 on an
-int16 S); nothing else touches it.
+int16 S, ``sgbm_tile`` the tile matchers that launched their K2 and K3
+passes); nothing else touches it.
 """
 
 from __future__ import annotations
@@ -65,13 +71,13 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "speckle_keep_seeded", "speckle_filter", "sgbm_cuda",
            "sgbm_pair_cuda", "cost_down", "aggregate_i16", "wta_lr3",
            "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
-           "sgbm_staged_cuda"]
+           "sgbm_staged_cuda", "sgbm_tile_cuda"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
             "sweep_labels": 0, "sweep_propagate": 0, "cost_down": 0,
             "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
-            "transpose_leading": 0, "transpose_dhw": 0}
+            "transpose_leading": 0, "transpose_dhw": 0, "sgbm_tile": 0}
 I16_MAX = 32767
 SWEEP_MAX_SIDE = 32768   # the sweep kernel's largest H and W (csrc/sweep.cu)
 
@@ -472,6 +478,36 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
     disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
     del C, S_down, S_h, S_up
     return _speckle(disp, params) if apply_speckle else disp
+
+
+def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
+                   bottom_halo: int = 0, apply_lr: bool = True
+                   ) -> torch.Tensor:
+    """``plain.sgbm_tile`` of a (1, M, W, D) int16 cost slab, M = top_halo
+    + local + bottom_halo -> (1, local, W) float32 disparity, -1.0 where
+    invalid: the down-going K2 passes over all M rows into an int32 S, the
+    horizontal and up-going ones accumulated into its rows below the top
+    halo, then K3 on those rows. One frame a call: a row slice of a batch
+    of frames is not contiguous, one of a single frame is."""
+    if not kernels.on_cuda(C):
+        return plain.sgbm_tile(C, params, top_halo, bottom_halo, apply_lr)
+    _check_params(params, C)
+    kernels.require(C, torch.int16, 4, "C")
+    B, M, W, D = C.shape
+    if B != 1 or D != params.num_disparities:
+        raise ValueError(f"need a (1, M, W, {params.num_disparities}) slab, "
+                         f"got {tuple(C.shape)}")
+    local = plain._tile_local(M, params, top_halo, bottom_halo)
+    S_all = torch.empty(C.shape, dtype=torch.int32, device=C.device)
+    for i, (dy, dx) in enumerate(plain.down_dirs(params.num_paths)):
+        sgm_pass(C, S_all, dy, dx, params.P1, params.P2, accumulate=i > 0)
+    # the top halo's rows are the down passes' warm-up only
+    body, S = C[:, top_halo:], S_all[:, top_halo:]
+    for dy, dx in [(0, 1), (0, -1)] + plain.up_dirs(params.num_paths):
+        sgm_pass(body, S, dy, dx, params.P1, params.P2, accumulate=True)
+    disp = wta_lr(S, params, apply_lr)
+    LAUNCHES["sgbm_tile"] += 1
+    return disp[:, :local]
 
 
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,

@@ -728,3 +728,87 @@ def test_transposes_match_permute(cuda, dtype, shape):
         x.view(ibits))
     y = sc.transpose_dhw_to_wdh
     assert torch.equal(y(y(y(x))).view(ibits), x.view(ibits))
+
+
+@pytest.mark.parametrize("H,W,kw", [
+    (32, 48, dict(num_disparities=16)),
+    (40, 72, dict(num_disparities=48, min_disparity=3, num_paths=4)),
+    (150, 130, dict(num_disparities=128, block_size=3, p1=72, p2=288)),
+])
+@pytest.mark.parametrize("top,bottom", [(0, 0), (8, 8), (64, 0), (8, 64),
+                                        (64, 64)])
+def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
+    """K9, the tile matcher: K2 and K3 on an int16 slab against
+    ``plain.sgbm_tile`` bitwise, LR on and off, at the smoke's halos 0, 8
+    and 64: halos of zero rows (beyond the image's edges) around the
+    image's rows, and halos cut from the image's own rows where it has
+    enough."""
+    params = SGBMParams(speckle_window_size=0, **kw)
+    left, right = pair(H, W, params.num_disparities, seed=H + top)
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(torch.tensor(left[:1], device=cuda), cap)
+    rt = plain.sobel_clip(torch.tensor(right[:1], device=cuda), cap)
+    C = sc.cost_volume(lt, rt, params)
+    z = torch.zeros((1, 64, W, params.num_disparities), dtype=torch.int16,
+                    device=cuda)
+    slabs = [torch.cat([z[:, :top], C, z[:, :bottom]], dim=1)]
+    if top + bottom < H:
+        slabs.append(C)
+    for slab in slabs:
+        for apply_lr in (True, False):
+            n = sc.LAUNCHES["sgbm_tile"]
+            got = sc.sgbm_tile_cuda(slab, params, top, bottom, apply_lr)
+            torch.cuda.synchronize()
+            assert sc.LAUNCHES["sgbm_tile"] == n + 1
+            want = plain.sgbm_tile(slab, params, top, bottom, apply_lr)
+            assert got.shape == want.shape == (
+                1, slab.shape[1] - top - bottom, W)
+            assert torch.equal(got, want)
+
+
+def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path):
+    """A world of one NCCL rank on the mesh (1, 1, 1): sgbm_sharded takes
+    the tile route (K1, K9, K4/K5) and equals sgbm_cuda bitwise; two tiles
+    with a full-coverage halo, run one after the other in this process,
+    equal it too."""
+    import torch.distributed as dist
+    from stereo_depth_ruler_tpu_torch.parallel import make_mesh, sgbm_sharded
+    from stereo_depth_ruler_tpu_torch.parallel.sharded import _sgbm_cuda_tile
+    params = SGBMParams(num_disparities=48, speckle_window_size=20,
+                        speckle_range=2)
+    left, right = (torch.tensor(a[0], device=cuda)
+                   for a in pair(64, 160, 48, seed=3))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, 1)
+        sc.reset_launch_counts()
+        got = sgbm_sharded(left, right, params, mesh)
+        torch.cuda.synchronize()
+        launches = dict(sc.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    want = sc.sgbm_cuda(left[None], right[None], params)[0]
+    assert torch.equal(got, want)
+    assert {k for k, v in launches.items() if v} == {
+        "cost_box", "sgm_pass", "wta_lr", "sgbm_tile", "speckle_labels",
+        "speckle_keep"}
+    assert launches["sgm_pass"] == 8 and launches["sgbm_tile"] == 1
+    tiles = torch.cat([_sgbm_cuda_tile(left, right, params, k, 2, 32, 32)
+                       for k in range(2)])
+    assert torch.equal(tiles, sc.sgbm_cuda(left[None], right[None], params,
+                                           apply_speckle=False)[0])
+
+
+def test_dryrun_multichip_on_the_cards(cuda):
+    """dryrun_multichip's default world: NCCL, one rank a card. Four ranks
+    on the mesh (1, 2, 2) where the machine has four cards (the D split's
+    plain scans, the halo exchange and K6/K7 on the cards, then the tile
+    route), else a world of one on (1, 1, 1)."""
+    from stereo_depth_ruler_tpu_torch.parallel.dryrun import dryrun_multichip
+    n = 4 if torch.cuda.device_count() >= 4 else 1
+    msg = dryrun_multichip(n, tile_rows=32, width=128, num_disp=32,
+                           frames_per_group=2, timeout=300.0)
+    want = "(frame=1, tile=2, disp=2)" if n == 4 else \
+        "(frame=1, tile=1, disp=1)"
+    assert msg.startswith(f"dryrun_multichip ok: mesh{want} on cuda"), msg

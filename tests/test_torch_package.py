@@ -5,6 +5,7 @@ pipeline builds and runs."""
 
 import ast
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -34,12 +35,19 @@ MODULES = ["stereo_depth_ruler_tpu_torch",
            "stereo_depth_ruler_tpu_torch.ops.remap",
            "stereo_depth_ruler_tpu_torch.ops.reproject",
            "stereo_depth_ruler_tpu_torch.utils.kernels",
-           "stereo_depth_ruler_tpu_torch.utils.profiling"]
+           "stereo_depth_ruler_tpu_torch.utils.profiling",
+           "stereo_depth_ruler_tpu_torch.parallel",
+           "stereo_depth_ruler_tpu_torch.parallel.mesh",
+           "stereo_depth_ruler_tpu_torch.parallel.sharded",
+           "stereo_depth_ruler_tpu_torch.parallel.dryrun",
+           # the cases the spawned processes of tests/test_torch_parallel.py
+           # import (tests/ is on the path)
+           "torch_parallel_cases"]
 SLICE = SGBMParams(num_disparities=16, speckle_window_size=0)
 
 
 def test_every_module_imports_without_jax():
-    code = ("import sys\n"
+    code = (f"import sys\nsys.path.insert(0, {str(ROOT / 'tests')!r})\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "print(sorted(m for m in sys.modules if m == 'jax' or "
               "m.startswith(('jax.', 'stereo_depth_ruler_tpu.'))))\n")
@@ -66,10 +74,25 @@ def _imported_roots(path):
     + ["chip_smoke.py", "tests/test_torch_cuda.py",
        "tools/profile_stages_torch.py", "tools/pair_tile_ab.py",
        "tools/speckle_tile_ab.py", "tools/speckle_probe.py",
-       "tools/sorted_runs_probe.py", "tools/path_digest.py"]))
+       "tools/sorted_runs_probe.py", "tools/path_digest.py",
+       "tests/torch_parallel_cases.py"]))
 def test_no_jax_package_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "stereo_depth_ruler_tpu"}, roots
+
+
+def test_mesh_names_match_the_jax_package():
+    """The mesh's axis names and the launcher's environment variables are
+    the JAX package's."""
+    from stereo_depth_ruler_tpu.parallel import mesh as jmesh
+    from stereo_depth_ruler_tpu_torch.parallel import mesh as tmesh
+    for name in ("FRAME_AXIS", "TILE_AXIS", "DISP_AXIS"):
+        assert getattr(tmesh, name) == getattr(jmesh, name)
+    src = (ROOT / "stereo_depth_ruler_tpu" / "parallel" / "mesh.py").read_text()
+    mine = (PORT / "parallel" / "mesh.py").read_text()
+    env = set(re.findall(r"SDR_[A-Z_]+", src))
+    assert env == {"SDR_COORDINATOR", "SDR_NUM_PROCESSES", "SDR_PROCESS_ID"}
+    assert set(re.findall(r"SDR_[A-Z_]+", mine)) == env
 
 
 def test_copied_sgbm_params_match():
