@@ -43,7 +43,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    columns), with launch counts proving K1-K7 ran, frames/s and peak
    memory; then K1-K7 on that path's own inputs (K1-K3 on the 16 stacked
    frames, 16x720x1280x128) against their plain versions, bitwise, and
-   K4-K7 timed (K5 beside scatter_add_, its histogram alone), and
+   K4-K7 timed (K5 beside scatter_add_, its histogram alone; K7 in turns
+   with torch.gather, the gather alone), and
    K4's and K5's three launches each timed apart (CUDA events between
    them, through speckle.cu's part entries); then torch.profiler traces
    three batches of the
@@ -86,17 +87,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    against their plain versions, bitwise, and timed;
 10. sharded (stereo_depth_ruler_tpu_torch/parallel): a world of one NCCL
    rank on the mesh (1, 1, 1); sgbm_sharded on one bench frame (speckle
-   200/2) equal to sgbm_cuda, launching K1, K2 x8, K3 (through the tile
-   matcher K9, sgbm_tile_cuda) and K4/K5 once each; pipeline_step_sharded
-   at batch 8 with rects and WLS, its disparity and xyz equal to the
-   frame-by-frame composition of the port's functions, launching K1-K3,
-   K9, K6 and K7, at the WLS bar, timed in turns with the full path, and
-   its peak memory; K9 in this process at 2 tiles with a full-coverage
-   halo equal to the whole frame, at halo 64 on 2 and 4 tiles within
-   max |err| 1/16 px and an exact fraction of 0.9999, sgbm_tile_cuda
-   against plain.sgbm_tile bitwise on slabs with halos of 0, 8 and 64
-   (zero rows beyond the image included), timed; then ms and peak memory
-   per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles.
+   200/2) equal to sgbm_cuda, launching K1, the tile matcher K9
+   (sgbm_tile_cuda: tile_sgm.cu's down, horizontal and up + WTA sweeps
+   and its LR pass, no K2 or K3) and K4/K5 once each;
+   pipeline_step_sharded at batch 8 with rects and WLS, its disparity and
+   xyz equal to the frame-by-frame composition of the port's functions,
+   launching K1, K9 (two a frame), K6 and K7 and nothing else, at the WLS
+   bar, timed in turns with the full path, and its peak memory; K9 in
+   this process at 2 tiles with a full-coverage halo equal to the whole
+   frame, at halo 64 on 2 and 4 tiles within max |err| 1/16 px and an
+   exact fraction of 0.9999, sgbm_tile_cuda against plain.sgbm_tile and
+   against the int32 route (K2 x8 and K3) bitwise on slabs with halos of
+   0, 8 and 64 (zero rows beyond the image included), LR on and off, and
+   each of tile_sgm.cu's kernels against its plain stage; K9 and the int32
+   route timed in turns on the whole-frame slab, each sweep timed; then
+   per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles: the
+   two routes in turns on the tile's slab, and ms and peak memory per tile
+   (slab build and K9) for each route.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -164,11 +171,23 @@ KERNELS = {
         "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:481"),
     "transpose_dhw": ("stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
                       "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:511"),
-    # K9, the tile matcher: sgbm_tile_cuda runs K2 (sgm_pass.cu) and K3
-    # (wta_lr.cu) on a slab that K1 builds
-    "sgbm_tile": ("stereo_depth_ruler_tpu_torch/ops/sgbm_cuda.py",
+    # K9, the tile matcher: sgbm_tile_cuda on a slab that K1 builds; at the
+    # paths' parameters tile_sgm.cu's three sweeps and its LR pass (the
+    # four records below)
+    "sgbm_tile": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
                   "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1095"),
+    "tile_down": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
+    "tile_horiz": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                   "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
+    "tile_up_wta": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                    "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
+    "tile_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
 }
+# tile_sgm.cu's kernels, launched once each per K9 call (tile_lr with the
+# LR check), by the sharded path only
+TILE_SGM = ("tile_down", "tile_horiz", "tile_up_wta", "tile_lr")
 # the pair modes, launched only by the shared path
 PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
 # the kernels the full path launches, and no other
@@ -1063,14 +1082,22 @@ def phase_full_path(card, errs, frames):
                                  1),
                          cuda_ms(lambda: sizes.scatter_add_(1, lab64, ones),
                                  5)),
-        "shift_gather": (cuda_ms(lambda: wc.shift_gather_conf(dl, dr, D), 5),
+        "shift_gather": (None,
                          cuda_ms(lambda: wplain.shift_gather_conf(dl, dr, D),
                                  2),
-                         cuda_ms(lambda: torch.gather(dr, -1, idx), 5)),
+                         None),
         "fgs_pass": (cuda_ms(lambda: wc.fgs_filter_cuda(rhs, lrect), 3) / n,
                      cuda_ms(lambda: wplain.fgs_filter(rhs, lrect), 1) / n,
                      None),
     }
+    # K7 and torch.gather (the gather alone) in turns, 20 calls a turn
+    k7, gather = in_turns_ms([lambda: wc.shift_gather_conf(dl, dr, D),
+                              lambda: torch.gather(dr, -1, idx)], reps=20)
+    log(f"full path [{card}]: shift_gather in turns with torch.gather: "
+        f"K7 {' / '.join(f'{x:.4f}' for x in k7)} ms, torch.gather "
+        f"{' / '.join(f'{x:.4f}' for x in gather)} ms")
+    times["shift_gather"] = (sum(k7) / 2, times["shift_gather"][1],
+                             sum(gather) / 2)
     px2, px = 2 * B * H * W, B * H * W
     # K6 per pixel and launch, counted from the Thomas solve (once per
     # element, though the kernel's two right-hand-side threads each repeat
@@ -1595,19 +1622,21 @@ def phase_sharded(card, errs, frames, full_pipe):
     """The sharded path (stereo_depth_ruler_tpu_torch/parallel) on a world
     of one NCCL rank and the mesh (1, 1, 1), and the tile matcher (K9) in
     this process at 2 and 4 tiles: (1) sgbm_sharded on one bench frame,
-    equal to sgbm_cuda, launching K1, K2 x8, K3, K4 and K5 once each; (2)
-    pipeline_step_sharded at batch 8 with rects and WLS, equal frame by
-    frame to the composition of the port's own functions (remap,
-    sgbm_cuda on the pair and on the mirrored, swapped pair, the WLS
-    filter, reproject), launching K1-K3, K9, K6 and K7, at the WLS bar,
-    timed in turns with the full path; (3) 2 tiles with a full-coverage
-    halo equal to the whole frame, halo 64 at 2 and 4 tiles within the
-    halo-32 bound of the JAX package's HALO_r04.jsonl (max |err| <= 1/16
-    px, exact fraction >= 0.9999), sgbm_tile_cuda against plain.sgbm_tile
-    on slabs with halos of 0, 8 and 64 (zero rows beyond the image
-    included); (4) ms and peak memory per tile at 720x1280x128 and
-    2560x1440x256 for 1, 2 and 4 tiles. Returns the counted step's
-    launches and K9's time and bound."""
+    equal to sgbm_cuda, launching K1, K9 (tile_sgm.cu's four kernels),
+    K4 and K5 once each; (2) pipeline_step_sharded at batch 8 with rects
+    and WLS, equal frame by frame to the composition of the port's own
+    functions (remap, sgbm_cuda on the pair and on the mirrored, swapped
+    pair, the WLS filter, reproject), launching K1, K9, K6 and K7 only,
+    at the WLS bar, timed in turns with the full path; (3) 2 tiles with a
+    full-coverage halo equal to the whole frame, halo 64 at 2 and 4 tiles
+    within the halo-32 bound of the JAX package's HALO_r04.jsonl (max
+    |err| <= 1/16 px, exact fraction >= 0.9999), sgbm_tile_cuda against
+    plain.sgbm_tile and the int32 route on slabs with halos of 0, 8 and
+    64 (zero rows beyond the image included), tile_sgm.cu's kernels
+    against their plain stages, the two routes timed in turns; (4) per
+    tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles, the two
+    routes in turns on the tile's slab, ms and peak memory per tile.
+    Returns the counted step's launches and K9's times and bounds."""
     import tempfile
 
     import torch
@@ -1622,7 +1651,7 @@ def phase_sharded(card, errs, frames, full_pipe):
     from stereo_depth_ruler_tpu_torch.parallel import (
         make_mesh, pipeline_step_sharded, sgbm_sharded)
     from stereo_depth_ruler_tpu_torch.parallel.sharded import (
-        _sgbm_cuda_tile, _tile_halo)
+        _sgbm_cuda_tile, _tile_halo, _tile_slab)
     rig, lefts, rights, gts = frames
     B, H, W = lefts.shape
     D = MAIN[3]
@@ -1652,9 +1681,8 @@ def phase_sharded(card, errs, frames, full_pipe):
                 f"{float((want >= 0).float().mean()):.4f})")
             if not torch.equal(got, want):
                 raise AssertionError("sgbm_sharded differs from sgbm_cuda")
-            if ran != {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
-                       "sgbm_tile": 1, "speckle_labels": 1,
-                       "speckle_keep": 1}:
+            if ran != {"cost_box": 1, "sgbm_tile": 1, "speckle_labels": 1,
+                       "speckle_keep": 1, **{k: 1 for k in TILE_SGM}}:
                 raise AssertionError(f"sgbm_sharded ran {ran}")
 
             # (2) the pipeline step at batch 8, full width
@@ -1674,9 +1702,12 @@ def phase_sharded(card, errs, frames, full_pipe):
             peak = torch.cuda.max_memory_allocated()
             launches = {**sc.LAUNCHES, **wc.LAUNCHES}
             log(f"sharded step launches: {launches}")
-            step_kernels = {"cost_box", "sgm_pass", "wta_lr", "sgbm_tile",
-                            "fgs_pass", "shift_gather"}
-            if {k for k, v in launches.items() if v} != step_kernels:
+            # per frame two K9 (the pair and the mirrored, swapped pair),
+            # each K1 and tile_sgm.cu's four kernels; one K7, six K6
+            step_kernels = {"cost_box": 2 * B, "sgbm_tile": 2 * B,
+                            "shift_gather": B, "fgs_pass": 6 * B,
+                            **{k: 2 * B for k in TILE_SGM}}
+            if {k: v for k, v in launches.items() if v} != step_kernels:
                 raise AssertionError(f"the sharded step ran {launches}")
             turns = in_turns_ms([step,
                                  lambda: full_pipe.process_batch(lefts,
@@ -1748,7 +1779,9 @@ def phase_sharded(card, errs, frames, full_pipe):
     C_full = sc.cost_volume(plain.sobel_clip(l0[None], cap).contiguous(),
                             plain.sobel_clip(r0[None], cap).contiguous(),
                             flat)
+    bias = sc.tile_bias(flat)
     err = 0.0
+    tile_errs = {k: 0.0 for k in TILE_SGM}
     q = H // 4
     for start, local, top, bottom in ((0, H, 0, 0), (0, q, 64, 64),
                                       (q, 2 * q, 8, 64), (3 * q, q, 64, 8),
@@ -1757,30 +1790,93 @@ def phase_sharded(card, errs, frames, full_pipe):
         for apply_lr in (True, False):
             got = sc.sgbm_tile_cuda(C, flat, top, bottom, apply_lr)
             torch.cuda.synchronize()
-            e = max_abs_err(got, plain.sgbm_tile(C, flat, top, bottom,
-                                                 apply_lr))
+            e = max(max_abs_err(got, plain.sgbm_tile(C, flat, top, bottom,
+                                                     apply_lr)),
+                    max_abs_err(got, sc._sgbm_tile_i32(C, flat, top,
+                                                       apply_lr)[:, :local]))
             err = max(err, e)
+        # tile_sgm.cu's kernels against their plain stages
+        body = C[:, top:]
+        S = sc.tile_down(C, flat, top, bias)
+        S_p = plain.tile_down_sum(C, flat, top, bias)
+        tile_errs["tile_down"] = max(tile_errs["tile_down"],
+                                     max_abs_err(S, S_p))
+        sc.tile_horiz(body, S, flat)
+        S_p = plain.tile_horizontal(body, S_p, flat)
+        tile_errs["tile_horiz"] = max(tile_errs["tile_horiz"],
+                                      max_abs_err(S, S_p))
+        del S_p
+        out, d2p = sc._tile_up(body, S, flat, bias, local, True)
+        want = plain.tile_up_wta(body, S, flat, bias, False)[:, :local]
+        tile_errs["tile_up_wta"] = max(tile_errs["tile_up_wta"],
+                                       max_abs_err(out, want))
+        sc._tile_lr(out, d2p, flat)
+        want = plain.tile_up_wta(body, S, flat, bias, True)[:, :local]
+        tile_errs["tile_lr"] = max(tile_errs["tile_lr"],
+                                   max_abs_err(out, want))
+        torch.cuda.synchronize()
+        del S, out, d2p, want
         log(f"sharded K9: slab rows {start}-{start + local} of {H}, halos "
-            f"{top}/{bottom}: max|err| vs plain.sgbm_tile {e}")
+            f"{top}/{bottom}: max|err| vs plain.sgbm_tile and the int32 "
+            f"route {e}; stages {tile_errs}")
     errs["sgbm_tile"] = err
-    if err:
-        raise AssertionError("sgbm_tile_cuda differs from plain.sgbm_tile")
+    errs.update(tile_errs)
+    if err or any(tile_errs.values()):
+        raise AssertionError("sgbm_tile_cuda differs from plain.sgbm_tile, "
+                             "the int32 route or a plain stage")
     C = C_full
-    times = {"sgbm_tile": (
-        cuda_ms(lambda: sc.sgbm_tile_cuda(C, flat), 5),
-        cuda_ms(lambda: plain.sgbm_tile(C, flat), 1), None)}
-    el = H * W * D
-    # the slab read once, the disparity written once; ~8 operations per
-    # element and direction (K2) and ~4 for the WTA/LR (K3)
-    bounds = {"sgbm_tile": bound(2 * el + 4 * H * W, (8 * 8 + 4) * el)}
-    log(f"sharded [{card}]: sgbm_tile on the step's 1x{H}x{W}x{D} slab: "
-        f"kernel {times['sgbm_tile'][0]:.3f} ms, plain "
-        f"{times['sgbm_tile'][1]:.3f} ms, bound "
-        f"{bounds['sgbm_tile'][0]:.3f} ms ({bounds['sgbm_tile'][1]})")
-    del C, C_full, whole
+    # the two routes in turns on the whole-frame slab
+    k9, i32 = in_turns_ms([lambda: sc.sgbm_tile_cuda(C, flat),
+                           lambda: sc._sgbm_tile_i32(C, flat, 0, True)])
+    log(f"sharded [{card}]: K9 on the 1x{H}x{W}x{D} slab in turns with the "
+        f"int32 route (K2 x8, K3): {' / '.join(f'{x:.3f}' for x in k9)} "
+        f"ms against {' / '.join(f'{x:.3f}' for x in i32)} ms")
+    S = sc.tile_down(C, flat, 0, bias)
+    S_h = S.clone()
+    sc.tile_horiz(C, S_h, flat)
+    out, d2p = sc._tile_up(C, S_h, flat, bias, H, True)
+    S_t = S.clone()
+    times = {
+        "sgbm_tile": (sum(k9) / 2,
+                      cuda_ms(lambda: plain.sgbm_tile(C, flat), 1), None),
+        "tile_down": (cuda_ms(lambda: sc.tile_down(C, flat, 0, bias), 10),
+                      cuda_ms(lambda: plain.tile_down_sum(C, flat, 0, bias),
+                              1), None),
+        "tile_horiz": (cuda_ms(lambda: sc.tile_horiz(C, S_t, flat), 10),
+                       cuda_ms(lambda: plain.tile_horizontal(C, S, flat), 1),
+                       None),
+        "tile_up_wta": (
+            cuda_ms(lambda: sc._tile_up(C, S_h, flat, bias, H, True), 10),
+            cuda_ms(lambda: plain.tile_up_wta(C, S_h, flat, bias, False), 1),
+            None),
+        "tile_lr": (cuda_ms(lambda: sc._tile_lr(out, d2p, flat), 10),
+                    None, None),
+    }
+    # the LR pass's plain version: lr_check on the 8-path sum and its WTA
+    S_f = (S_h.float() + bias + plain._sum_passes(
+        C.float(), plain.up_dirs(flat.num_paths), flat))
+    disp_f, valid_f = plain.wta(S_f, flat)
+    times["tile_lr"] = (times["tile_lr"][0], cuda_ms(
+        lambda: plain.lr_check(S_f, disp_f, valid_f, flat), 1), None)
+    del S_f, disp_f, valid_f
+    el, px = H * W * D, H * W
+    # bytes: each input read once, each output written once; operations
+    # ~8 per element and path, ~4 per element for the WTA, ~4 per pixel
+    # for the LR check
+    bounds = {"sgbm_tile": bound(2 * el + 4 * px, (8 * 8 + 4) * el),
+              "tile_down": bound(4 * el, 8 * 3 * el),
+              "tile_horiz": bound(6 * el, 8 * 2 * el),
+              "tile_up_wta": bound(4 * el + 8 * px, (8 * 3 + 4) * el),
+              "tile_lr": bound(12 * px, 4 * px)}
+    for name in ("sgbm_tile", *TILE_SGM):
+        log(f"sharded [{card}]: {name} on the step's 1x{H}x{W}x{D} slab: "
+            f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.3f} ms, "
+            f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
+    del C, C_full, whole, S, S_h, S_t, out, d2p
     torch.cuda.empty_cache()
 
-    # (4) ms and peak memory per tile (slab build + K9), halo 64
+    # (4) per tile, halo 64: the two routes in turns on the tile's slab,
+    # then ms and peak memory per tile (slab build + K9) for each
     for Hs, Ws, Ds in (KERNEL_SHAPES[-1], STRESS):
         if (Hs, Ws) == (H, W):
             l, r = l0, r0
@@ -1792,22 +1888,42 @@ def phase_sharded(card, errs, frames, full_pipe):
         for n_tile in (1, 2, 4):
             h = Hs // n_tile
             k = min(1, n_tile - 1)      # an inner tile where there is one
+            Cs, halo = _tile_slab(l, r, p, k, n_tile, h, 64)
+            a, b = in_turns_ms([
+                lambda: sc.sgbm_tile_cuda(Cs, p, halo, halo),
+                lambda: sc._sgbm_tile_i32(Cs, p, halo, True)], reps=3)
+            del Cs
+            torch.cuda.empty_cache()
 
             def tile():
                 return _sgbm_cuda_tile(l, r, p, k, n_tile, h, 64)
 
-            ms = cuda_ms(tile, 3)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            tile()
-            torch.cuda.synchronize()
-            mem = torch.cuda.max_memory_allocated() - base
-            M = h + 2 * _tile_halo(n_tile, h, 64)
+            def tile_i32():
+                Cs, halo = _tile_slab(l, r, p, k, n_tile, h, 64)
+                return sc._sgbm_tile_i32(Cs, p, halo, True)[0, :h]
+
+            res = []
+            for fn in (tile, tile_i32):
+                ms = cuda_ms(fn, 3)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                res.append((ms, (torch.cuda.max_memory_allocated() - base)
+                            / 2**30))
+                torch.cuda.empty_cache()
+            M = h + 2 * halo
             log(f"sharded tiles [{card}]: {Ws}x{Hs}x{Ds}, {n_tile} tiles, "
-                f"tile {k}: {M}-row slab, {ms:.3f} ms per tile, peak memory "
-                f"{mem / 2**30:.3f} GiB per tile")
+                f"tile {k}: {M}-row slab; K9 alone in turns "
+                f"{' / '.join(f'{x:.3f}' for x in a)} ms, int32 route "
+                f"{' / '.join(f'{x:.3f}' for x in b)} ms; per tile with the "
+                f"slab build {res[0][0]:.3f} ms, peak memory {res[0][1]:.3f} "
+                f"GiB (int32 route {res[1][0]:.3f} ms, {res[1][1]:.3f} GiB)")
+            if res[0][1] > res[1][1]:
+                raise AssertionError("K9's peak memory per tile passes the "
+                                     "int32 route's")
         del l, r
         torch.cuda.empty_cache()
     return launches, times, bounds
@@ -1880,7 +1996,7 @@ def main():
     launches.update({k: launches3[k] for k in PAIR_MODES})
     launches.update({k: launches4[k] for k in SORT_FAMILY})
     launches.update({k: launches5[k] for k in (*STAGED_CHAIN, *TRANSPOSES)})
-    launches["sgbm_tile"] = launches6["sgbm_tile"]
+    launches.update({k: launches6[k] for k in ("sgbm_tile", *TILE_SGM)})
     times = {**times1, **times2, **times3, **times4, **times5, **times6}
     bounds = {**bounds1, **bounds2, **bounds3, **bounds4, **bounds5,
               **bounds6}

@@ -35,7 +35,9 @@ the three. ``transpose_vol``, ``transpose_leading`` and
 ``sgbm_tile`` is the matcher on a row slab of the cost volume with halo
 rows above and below: the per-tile matcher of the sharded path
 (``parallel/sharded.py``), the plain counterpart of the JAX package's
-``sgbm_tile_pallas``.
+``sgbm_tile_pallas``. ``tile_down_sum``, ``tile_horizontal`` and
+``tile_up_wta`` are the stages of its biased route (csrc/tile_sgm.cu's
+three sweeps), ``sgbm_tile_biased`` their composition.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "compute_disparity_pair", "cost_volume_pair", "sgbm_pair",
            "down_dirs", "up_dirs", "cost_down", "wta_lr3", "sgbm_staged",
            "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
-           "sgbm_tile"]
+           "sgbm_tile", "tile_down_sum", "tile_horizontal", "tile_up_wta",
+           "sgbm_tile_biased"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -648,3 +651,51 @@ def sgbm_tile(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
     S += _sum_passes(C, down_dirs(params.num_paths),
                      params)[..., top_halo:, :, :]
     return wta_lr(S, params, apply_lr)[..., :local, :]
+
+
+def tile_down_sum(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
+                  bias: float = 0.0) -> torch.Tensor:
+    """The biased tile route's first stage: the down-going passes
+    (``down_dirs``) over all M rows of a (..., M, W, D) slab, minus
+    ``bias``, on the rows below the top halo; float32. The plain version of
+    the down sweep (csrc/tile_sgm.cu), and of the JAX package's
+    ``directional_pass_pallas(..., acc=0, out_offset=-bias)``."""
+    C = C.to(torch.float32)
+    return (_sum_passes(C, down_dirs(params.num_paths), params)
+            [..., top_halo:, :, :] - bias)
+
+
+def tile_horizontal(C_body: torch.Tensor, S_dh: torch.Tensor,
+                    params: SGBMParams) -> torch.Tensor:
+    """``S_dh`` plus both horizontal passes over the (..., R, W, D) body
+    rows: the plain version of the horizontal sweep."""
+    return S_dh.to(torch.float32) + _sum_passes(
+        C_body.to(torch.float32), [(0, 1), (0, -1)], params)
+
+
+def tile_up_wta(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+                bias: float = 0.0, apply_lr: bool = True) -> torch.Tensor:
+    """``wta_lr`` of S = S_dh + bias + the up-going passes over the body
+    rows, which start at their last row: the plain version of the fused up
+    sweep and WTA (with ``apply_lr``, and of the LR pass after it), and of
+    the JAX package's ``up_wta_pallas(C_body, S_dh, None, params,
+    sd_offset=bias)``. Returns the (..., R, W) disparity, -1.0 where
+    invalid."""
+    S = (S_dh.to(torch.float32) + bias
+         + _sum_passes(C_body.to(torch.float32), up_dirs(params.num_paths),
+                       params))
+    return wta_lr(S, params, apply_lr)
+
+
+def sgbm_tile_biased(C: torch.Tensor, params: SGBMParams, bias: float,
+                     top_halo: int = 0, bottom_halo: int = 0,
+                     apply_lr: bool = True) -> torch.Tensor:
+    """``sgbm_tile`` by the stages of the biased route: the down sum minus
+    ``bias``, the horizontal update, the up-going passes and the WTA on
+    S_dh + bias. Equal to ``sgbm_tile`` bit for bit (integer path values);
+    the kernels store S_dh in int16, which the bias keeps in range."""
+    local = _tile_local(C.shape[-3], params, top_halo, bottom_halo)
+    body = C[..., top_halo:, :, :]
+    S_dh = tile_horizontal(body, tile_down_sum(C, params, top_halo, bias),
+                           params)
+    return tile_up_wta(body, S_dh, params, bias, apply_lr)[..., :local, :]

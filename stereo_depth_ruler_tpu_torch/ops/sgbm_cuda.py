@@ -39,9 +39,13 @@ runs the same matcher on int16 partial path sums:
 port's layout needs none of them, the stage profiler times them.
 
 ``sgbm_tile_cuda`` (K9, the JAX package's ``sgbm_tile_pallas``) is the
-per-tile matcher of the sharded path: K2 and K3 on a row slab of the cost
-volume with halo rows, which K1 builds (``parallel/sharded.py``). It needs
-no kernel of its own: K2 and K3 take a slab of any height.
+per-tile matcher of the sharded path, on a row slab of the cost volume with
+halo rows, which K1 builds (``parallel/sharded.py``). ``tile_bias`` picks
+its route as the JAX package's ``_wta_bias`` does: where the down-going and
+horizontal paths' sum fits int16 as it is or shifted by a bias, the three
+sweeps of csrc/tile_sgm.cu (``tile_down``, ``tile_horiz``, ``tile_up_wta``
+with its LR pass), on one int16 volume S_dh; otherwise K2 x8 and K3 on an
+int32 S.
 
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
@@ -49,8 +53,9 @@ the device of its input: a CPU tensor gets the plain version of
 counts kernel launches per wrapper and mode (``cost_box_pair`` and
 ``wta_lr_mirror`` are the pair modes, ``sweep_labels`` and
 ``sweep_propagate`` the sweep kernel's two, ``sgm_pass_i16`` K2 on an
-int16 S, ``sgbm_tile`` the tile matchers that launched their K2 and K3
-passes); nothing else touches it.
+int16 S, ``sgbm_tile`` the tile matchers, ``tile_down``, ``tile_horiz``,
+``tile_up_wta`` and ``tile_lr`` tile_sgm.cu's kernels); nothing else
+touches it.
 """
 
 from __future__ import annotations
@@ -71,13 +76,15 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "speckle_keep_seeded", "speckle_filter", "sgbm_cuda",
            "sgbm_pair_cuda", "cost_down", "aggregate_i16", "wta_lr3",
            "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
-           "sgbm_staged_cuda", "sgbm_tile_cuda"]
+           "sgbm_staged_cuda", "sgbm_tile_cuda", "tile_bias", "tile_down",
+           "tile_horiz", "tile_up_wta"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
             "sweep_labels": 0, "sweep_propagate": 0, "cost_down": 0,
             "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
-            "transpose_leading": 0, "transpose_dhw": 0, "sgbm_tile": 0}
+            "transpose_leading": 0, "transpose_dhw": 0, "sgbm_tile": 0,
+            "tile_down": 0, "tile_horiz": 0, "tile_up_wta": 0, "tile_lr": 0}
 I16_MAX = 32767
 SWEEP_MAX_SIDE = 32768   # the sweep kernel's largest H and W (csrc/sweep.cu)
 
@@ -480,24 +487,135 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
     return _speckle(disp, params) if apply_speckle else disp
 
 
-def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
-                   bottom_halo: int = 0, apply_lr: bool = True
-                   ) -> torch.Tensor:
-    """``plain.sgbm_tile`` of a (1, M, W, D) int16 cost slab, M = top_halo
-    + local + bottom_halo -> (1, local, W) float32 disparity, -1.0 where
-    invalid: the down-going K2 passes over all M rows into an int32 S, the
-    horizontal and up-going ones accumulated into its rows below the top
-    halo, then K3 on those rows. One frame a call: a row slice of a batch
-    of frames is not contiguous, one of a single frame is."""
+def tile_bias(params: SGBMParams) -> Optional[int]:
+    """The tile matcher's route, as the JAX package's ``_wta_bias`` picks it
+    for an int16 slab: S_dh, the sum of the down-going and the two
+    horizontal paths, reaches at most max_sum = ``path_sum_bound`` over
+    those paths; below 32000 it fits int16 as it is (bias 0), below 65000
+    shifted down by max_sum // 2; past that None: the int32 route."""
+    max_sum = path_sum_bound(params, len(plain.down_dirs(params.num_paths))
+                             + 2)
+    if max_sum < 32000:
+        return 0
+    if max_sum < 65000:
+        return max_sum // 2
+    return None
+
+
+def _require_slab(C: torch.Tensor, params: SGBMParams, name: str,
+                  S_dh: Optional[torch.Tensor] = None) -> None:
+    """A (1, M, W, D) int16 slab, and S_dh of its shape where given."""
+    kernels.require(C, torch.int16, 4, name)
+    if C.shape[0] != 1 or C.shape[3] != params.num_disparities:
+        raise ValueError(f"{name}: need a (1, M, W, "
+                         f"{params.num_disparities}) slab, got "
+                         f"{tuple(C.shape)}")
+    if S_dh is not None:
+        kernels.require(S_dh, torch.int16, 4, "S_dh")
+        if S_dh.shape != C.shape:
+            raise ValueError(f"shape mismatch {tuple(C.shape)} "
+                             f"{tuple(S_dh.shape)}")
+
+
+def tile_down(C: torch.Tensor, params: SGBMParams, top_halo: int,
+              bias: int) -> torch.Tensor:
+    """(1, M, W, D) int16 slab -> (1, M - top_halo, W, D) int16 S_dh: the
+    down-going paths over all M rows minus ``bias``, on the rows below the
+    top halo (``plain.tile_down_sum``), from the down sweep of
+    csrc/tile_sgm.cu. The caller keeps S_dh within int16 (``tile_bias``)."""
     if not kernels.on_cuda(C):
-        return plain.sgbm_tile(C, params, top_halo, bottom_halo, apply_lr)
-    _check_params(params, C)
-    kernels.require(C, torch.int16, 4, "C")
-    B, M, W, D = C.shape
-    if B != 1 or D != params.num_disparities:
-        raise ValueError(f"need a (1, M, W, {params.num_disparities}) slab, "
-                         f"got {tuple(C.shape)}")
-    local = plain._tile_local(M, params, top_halo, bottom_halo)
+        return plain.tile_down_sum(C, params, top_halo, bias).to(torch.int16)
+    _require_slab(C, params, "C")
+    _, M, W, D = C.shape
+    S = torch.empty((1, M - top_halo, W, D), dtype=torch.int16,
+                    device=C.device)
+    lib = kernels.load()
+    scratch = torch.zeros(lib.sdr_tile_scratch_size(W, D), dtype=torch.int16,
+                          device=C.device)
+    rc = lib.sdr_tile_down(C.data_ptr(), S.data_ptr(), scratch.data_ptr(), M,
+                           W, D, top_halo, int(bias), params.P1, params.P2,
+                           len(plain.down_dirs(params.num_paths)),
+                           kernels.stream())
+    kernels.check(rc, "tile_down")
+    LAUNCHES["tile_down"] += 1
+    return S
+
+
+def tile_horiz(C_body: torch.Tensor, S_dh: torch.Tensor,
+               params: SGBMParams) -> None:
+    """Both horizontal paths over the (1, R, W, D) int16 body rows added
+    into S_dh in place (``plain.tile_horizontal``), from the horizontal
+    sweep of csrc/tile_sgm.cu."""
+    if not kernels.on_cuda(C_body, S_dh):
+        S_dh.copy_(plain.tile_horizontal(C_body, S_dh, params))
+        return
+    _require_slab(C_body, params, "C_body", S_dh)
+    _, R, W, D = C_body.shape
+    rc = kernels.load().sdr_tile_horiz(C_body.data_ptr(), S_dh.data_ptr(), R,
+                                       W, D, params.P1, params.P2,
+                                       kernels.stream())
+    kernels.check(rc, "tile_horiz")
+    LAUNCHES["tile_horiz"] += 1
+
+
+def _tile_up(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+             bias: int, local: int, lr: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the up sweep with the WTA on CUDA body rows: the (1, local, W)
+    disparity before the LR check and, with ``lr``, the per-row winner
+    scatter (local, W) int32 that the LR pass reads."""
+    _require_slab(C_body, params, "C_body", S_dh)
+    _, R, W, D = C_body.shape
+    out = torch.empty((1, local, W), dtype=torch.float32, device=C_body.device)
+    d2p = torch.empty((local, W) if lr else (1,), dtype=torch.int32,
+                      device=C_body.device)
+    lib = kernels.load()
+    scratch = torch.zeros(lib.sdr_tile_scratch_size(W, D), dtype=torch.int16,
+                          device=C_body.device)
+    rc = lib.sdr_tile_up_wta(
+        C_body.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
+        scratch.data_ptr(), R, W, D, local, int(bias), params.P1, params.P2,
+        len(plain.up_dirs(params.num_paths)), params.min_disparity,
+        params.uniqueness_ratio, int(params.quantize_16), int(lr),
+        kernels.stream())
+    kernels.check(rc, "tile_up_wta")
+    LAUNCHES["tile_up_wta"] += 1
+    return out, d2p
+
+
+def _tile_lr(out: torch.Tensor, d2p: torch.Tensor,
+             params: SGBMParams) -> None:
+    """Launch the LR pass on ``_tile_up``'s outputs, in place."""
+    _, local, W = out.shape
+    rc = kernels.load().sdr_tile_lr(out.data_ptr(), d2p.data_ptr(), local, W,
+                                    params.num_disparities,
+                                    params.min_disparity,
+                                    params.disp12_max_diff, kernels.stream())
+    kernels.check(rc, "tile_lr")
+    LAUNCHES["tile_lr"] += 1
+
+
+def tile_up_wta(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+                bias: int, local: int, apply_lr: bool = True) -> torch.Tensor:
+    """(1, R, W, D) int16 body rows and S_dh -> (1, local, W) float32
+    disparity of the first ``local`` rows, -1.0 where invalid: the up-going
+    paths from the last row, fused with the WTA on S_dh + bias + L_up
+    (``plain.tile_up_wta``), then the LR pass; csrc/tile_sgm.cu."""
+    if not kernels.on_cuda(C_body, S_dh):
+        return plain.tile_up_wta(C_body, S_dh, params, bias,
+                                 apply_lr)[..., :local, :]
+    lr = apply_lr and params.disp12_max_diff >= 0
+    out, d2p = _tile_up(C_body, S_dh, params, bias, local, lr)
+    if lr:
+        _tile_lr(out, d2p, params)
+    return out
+
+
+def _sgbm_tile_i32(C: torch.Tensor, params: SGBMParams, top_halo: int,
+                   apply_lr: bool) -> torch.Tensor:
+    """The int32 route: the down-going K2 passes over all M rows into an
+    int32 S, the horizontal and up-going ones accumulated into its rows
+    below the top halo, then K3 on those rows."""
     S_all = torch.empty(C.shape, dtype=torch.int32, device=C.device)
     for i, (dy, dx) in enumerate(plain.down_dirs(params.num_paths)):
         sgm_pass(C, S_all, dy, dx, params.P1, params.P2, accumulate=i > 0)
@@ -505,9 +623,34 @@ def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
     body, S = C[:, top_halo:], S_all[:, top_halo:]
     for dy, dx in [(0, 1), (0, -1)] + plain.up_dirs(params.num_paths):
         sgm_pass(body, S, dy, dx, params.P1, params.P2, accumulate=True)
-    disp = wta_lr(S, params, apply_lr)
+    return wta_lr(S, params, apply_lr)
+
+
+def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
+                   bottom_halo: int = 0, apply_lr: bool = True
+                   ) -> torch.Tensor:
+    """``plain.sgbm_tile`` of a (1, M, W, D) int16 cost slab, M = top_halo
+    + local + bottom_halo -> (1, local, W) float32 disparity, -1.0 where
+    invalid. Where ``tile_bias`` gives a bias, the three sweeps of
+    csrc/tile_sgm.cu on an int16 S_dh (``tile_down``, ``tile_horiz``,
+    ``tile_up_wta``); where it gives None, K2 x8 into an int32 S and K3
+    (``_sgbm_tile_i32``). One frame a call: a row slice of a batch of
+    frames is not contiguous, one of a single frame is."""
+    if not kernels.on_cuda(C):
+        return plain.sgbm_tile(C, params, top_halo, bottom_halo, apply_lr)
+    _check_params(params, C)
+    _require_slab(C, params, "C")
+    local = plain._tile_local(C.shape[1], params, top_halo, bottom_halo)
+    bias = tile_bias(params)
+    if bias is None:
+        disp = _sgbm_tile_i32(C, params, top_halo, apply_lr)[:, :local]
+    else:
+        S_dh = tile_down(C, params, top_halo, bias)
+        body = C[:, top_halo:]
+        tile_horiz(body, S_dh, params)
+        disp = tile_up_wta(body, S_dh, params, bias, local, apply_lr)
     LAUNCHES["sgbm_tile"] += 1
-    return disp[:, :local]
+    return disp
 
 
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,

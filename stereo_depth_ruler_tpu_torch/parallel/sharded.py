@@ -28,7 +28,8 @@ holds the replicated images and computes its own block:
 
 The tile route (``kernel="cuda"``) runs each tile through the hand-written
 kernels: K1 builds the tile's slab with its halo rows from the replicated
-images, ``sgbm_tile_cuda`` (K9: K2 and K3 on the slab) matches it. On CPU
+images, ``sgbm_tile_cuda`` (K9: tile_sgm.cu's three sweeps on an int16
+S_dh, or K2 and K3 where ``tile_bias`` gives none) matches it. On CPU
 tensors the same route runs the kernels' plain versions.
 
 Collectives are issued by every member of a group in the same order: the

@@ -88,10 +88,24 @@ _SIGNATURES = {
     "sdr_radix_scratch_size": [_I, _I],
     # skey, sidx, out, B, N, n_out, mode, max_size, L, slots, stream
     "sdr_sorted_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # W, D -> int16 entries of zeroed scratch one tile sweep needs (a long
+    # long)
+    "sdr_tile_scratch_size": [_I, _I],
+    # C, S, scratch, M, W, D, top, bias, P1, P2, ndir, stream
+    "sdr_tile_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # C, S, R, W, D, P1, P2, stream
+    "sdr_tile_horiz": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # C, S, out, d2p, scratch, R, W, D, local, bias, P1, P2, ndir, md,
+    # uniq, quant16, lr, stream
+    "sdr_tile_up_wta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P],
+    # out, d2p, local, W, D, md, disp12, stream
+    "sdr_tile_lr": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _RESTYPES = {"sdr_radix_scratch_size": ctypes.c_longlong,
-             "sdr_cost_down_scratch_size": ctypes.c_longlong}
+             "sdr_cost_down_scratch_size": ctypes.c_longlong,
+             "sdr_tile_scratch_size": ctypes.c_longlong}
 
 _lib = None
 

@@ -623,6 +623,41 @@ def test_wls_kernels_match_plain(cuda, H, W):
     assert torch.equal(f, f_p)
 
 
+@pytest.mark.parametrize("B,H,W", [(1, 24, 64), (8, 17, 128), (1, 9, 37),
+                                   (8, 5, 130), (3, 4, 1), (2, 6, 2)])
+def test_shift_gather_matches_plain(cuda, B, H, W):
+    """K7 (a block a row and frame, the right view's row staged, 4 pixels
+    a thread in 16-byte accesses where W % 4 == 0, scalar otherwise)
+    against ``ops/wls.py:shift_gather_conf`` bitwise: B = 1 and 8, W not a
+    multiple of 4, max_s at its edge (a shift of exactly max_s kept, one
+    more dropped), shifts landing on column 0 and past it, exact halves
+    (round half to even), invalid pixels on both sides."""
+    rng = np.random.default_rng(B * 1000 + H * 10 + W)
+    xs = np.arange(W, dtype=np.float32)
+    dl = np.float32(rng.integers(0, W + 3, (B, H, W))
+                    + rng.choice([0.0, 0.25, 0.5, 0.75], (B, H, W)))
+    dl[..., 0, :] = xs                       # every shift lands on column 0
+    if H > 1:
+        dl[..., 1, :] = xs + 1               # one past it
+    dl[rng.uniform(size=dl.shape) < 0.15] = -1.0
+    dr = np.float32(rng.integers(-1, W, (B, H, W))
+                    + rng.choice([0.0, 0.5], (B, H, W)))
+    dl, dr = (torch.tensor(a, device=cuda) for a in (dl, dr))
+    for max_s in sorted({0, 1, W // 2, W - 2, W - 1, W}):
+        for lrc in (1.5, 0.0):
+            got = wc.shift_gather_conf(dl, dr, max_s, lrc)
+            torch.cuda.synchronize()
+            want = wplain.shift_gather_conf(dl, dr, max_s, lrc)
+            assert torch.equal(got, want), (max_s, lrc)
+    # max_s at its edge: shifts of exactly max_s gather, max_s + 1 do not
+    s = 3
+    edge = torch.full((B, H, W), float(s), device=cuda)
+    for max_s in (s - 1, s):
+        got = wc.shift_gather_conf(edge, edge, max_s)
+        assert torch.equal(got, wplain.shift_gather_conf(edge, edge, max_s))
+        assert bool((got[:, 1, :, s:] == float(max_s >= s)).all())
+
+
 @pytest.mark.parametrize("H,W,kw", [
     (32, 48, dict(num_disparities=16)),
     (40, 72, dict(num_disparities=48, min_disparity=3)),
@@ -734,16 +769,23 @@ def test_transposes_match_permute(cuda, dtype, shape):
     (32, 48, dict(num_disparities=16)),
     (40, 72, dict(num_disparities=48, min_disparity=3, num_paths=4)),
     (150, 130, dict(num_disparities=128, block_size=3, p1=72, p2=288)),
+    (36, 83, dict(num_disparities=64)),                     # ragged width
+    (30, 70, dict(num_disparities=32, block_size=7)),       # int32 route
+    (28, 61, dict(num_disparities=80, block_size=7, num_paths=4)),
 ])
 @pytest.mark.parametrize("top,bottom", [(0, 0), (8, 8), (64, 0), (8, 64),
                                         (64, 64)])
 def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
-    """K9, the tile matcher: K2 and K3 on an int16 slab against
-    ``plain.sgbm_tile`` bitwise, LR on and off, at the smoke's halos 0, 8
-    and 64: halos of zero rows (beyond the image's edges) around the
-    image's rows, and halos cut from the image's own rows where it has
-    enough."""
+    """K9, the tile matcher, against ``plain.sgbm_tile`` bitwise, LR on and
+    off, at the smoke's halos 0, 8 and 64: halos of zero rows (beyond the
+    image's edges) around the image's rows, and halos cut from the image's
+    own rows where it has enough. The route follows ``tile_bias``: a bias
+    (16 disparities at block 5, 4 paths at block 7) or none (block 3, and
+    4 paths at block 5) runs tile_sgm.cu's sweeps and no K2 or K3; 8 paths
+    at block 7 run K2 x8 and K3 on an int32 S, and equal the int16 route's
+    plain stages where both apply."""
     params = SGBMParams(speckle_window_size=0, **kw)
+    bias = sc.tile_bias(params)
     left, right = pair(H, W, params.num_disparities, seed=H + top)
     cap = params.pre_filter_cap
     lt = plain.sobel_clip(torch.tensor(left[:1], device=cuda), cap)
@@ -756,26 +798,47 @@ def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
         slabs.append(C)
     for slab in slabs:
         for apply_lr in (True, False):
-            n = sc.LAUNCHES["sgbm_tile"]
+            before = dict(sc.LAUNCHES)
             got = sc.sgbm_tile_cuda(slab, params, top, bottom, apply_lr)
             torch.cuda.synchronize()
-            assert sc.LAUNCHES["sgbm_tile"] == n + 1
+            ran = {k: v - before[k] for k, v in sc.LAUNCHES.items()
+                   if v != before[k]}
+            if bias is None:
+                assert ran == {"sgm_pass": 8, "wta_lr": 1, "sgbm_tile": 1}
+            else:
+                assert ran == {"tile_down": 1, "tile_horiz": 1,
+                               "tile_up_wta": 1, "sgbm_tile": 1,
+                               **({"tile_lr": 1} if apply_lr else {})}
             want = plain.sgbm_tile(slab, params, top, bottom, apply_lr)
             assert got.shape == want.shape == (
                 1, slab.shape[1] - top - bottom, W)
             assert torch.equal(got, want)
+            assert torch.equal(
+                sc._sgbm_tile_i32(slab, params, top, apply_lr)[
+                    :, :got.shape[1]], got)
+    if bias is not None:
+        slab = slabs[0]
+        S = sc.tile_down(slab, params, top, bias)
+        assert torch.equal(S.float(), plain.tile_down_sum(slab, params, top,
+                                                          bias))
+        body = slab[:, top:]
+        want = plain.tile_horizontal(body, S, params)
+        sc.tile_horiz(body, S, params)
+        assert torch.equal(S.float(), want)
 
 
-def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path):
+@pytest.mark.parametrize("block", [5, 7])
+def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path, block):
     """A world of one NCCL rank on the mesh (1, 1, 1): sgbm_sharded takes
     the tile route (K1, K9, K4/K5) and equals sgbm_cuda bitwise; two tiles
     with a full-coverage halo, run one after the other in this process,
-    equal it too."""
+    equal it too. At block 5 K9 runs tile_sgm.cu's sweeps and no K2 or
+    K3; at block 7 (S_dh past the biased int16 range) K2 x8 and K3."""
     import torch.distributed as dist
     from stereo_depth_ruler_tpu_torch.parallel import make_mesh, sgbm_sharded
     from stereo_depth_ruler_tpu_torch.parallel.sharded import _sgbm_cuda_tile
     params = SGBMParams(num_disparities=48, speckle_window_size=20,
-                        speckle_range=2)
+                        speckle_range=2, block_size=block)
     left, right = (torch.tensor(a[0], device=cuda)
                    for a in pair(64, 160, 48, seed=3))
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
@@ -790,10 +853,15 @@ def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path):
         dist.destroy_process_group()
     want = sc.sgbm_cuda(left[None], right[None], params)[0]
     assert torch.equal(got, want)
+    tile = ({"sgm_pass", "wta_lr"} if block == 7 else
+            {"tile_down", "tile_horiz", "tile_up_wta", "tile_lr"})
     assert {k for k, v in launches.items() if v} == {
-        "cost_box", "sgm_pass", "wta_lr", "sgbm_tile", "speckle_labels",
-        "speckle_keep"}
-    assert launches["sgm_pass"] == 8 and launches["sgbm_tile"] == 1
+        "cost_box", "sgbm_tile", "speckle_labels", "speckle_keep", *tile}
+    if block == 7:
+        assert launches["sgm_pass"] == 8 and launches["sgbm_tile"] == 1
+    else:
+        assert all(launches[k] == 1 for k in tile)
+        assert launches["sgbm_tile"] == 1
     tiles = torch.cat([_sgbm_cuda_tile(left, right, params, k, 2, 32, 32)
                        for k in range(2)])
     assert torch.equal(tiles, sc.sgbm_cuda(left[None], right[None], params,

@@ -163,6 +163,6 @@ def test_kernel_sources_are_packaged():
     assert names == ["cost_box.cu", "cost_down.cu", "fgs_pass.cu",
                      "radix_sort.cu", "sgm_pass.cu", "shift_gather.cu",
                      "sorted_runs.cu", "speckle.cu", "sweep.cu",
-                     "transpose.cu", "wta_lr.cu"]
+                     "tile_sgm.cu", "transpose.cu", "wta_lr.cu"]
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
