@@ -103,7 +103,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    route timed in turns on the whole-frame slab, each sweep timed; then
    per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles: the
    two routes in turns on the tile's slab, and ms and peak memory per tile
-   (slab build and K9) for each route.
+   (slab build and K9) for each route;
+11. host (the CLI and the point cloud, in a temp dir): the CLI's synth
+   writes 128 frames of 1280x720 (seed 0; 16 batches, so that the
+   pipeline's fill is a small part of the timed run), and a BGR copy with
+   channels
+   that differ; the CLI's run on each (batch 8, 128 disparities, the
+   full path's settings), which must launch per batch K1, K2 x8, K3, K4,
+   K5, K7 and K6 x6 and nothing else, its per-frame metrics bitwise
+   equal to StereoPipeline.process_batch on the same VideoSource frames,
+   its video_end_to_end_fps printed beside that loop's frames/s and the
+   upload's ms per batch; the CLI's cloud of frame 3: the disparity of
+   its matcher (K1-K5) bitwise equal to the plain matcher on the card,
+   the voxel count and order equal to voxel_downsample on the CPU on the
+   card's own kept points (centroids at atol 1e-3), the PCD file too, ms
+   per cloud_from_pair with its split (matcher, reproject + keep, voxel,
+   PCD write); the CLI's measure on two points of the nearest box equal
+   to measure_distance on the pipeline's own xyz, beside the ground truth.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -212,6 +228,15 @@ SERPENTINE = (720, 1280)
 MAIN = (8, 720, 1280, 128)
 # (H, W, D) of the stress shape (the JAX package's bench.py:181-192)
 STRESS = (1440, 2560, 256)
+# the host phase: frames, H, W and D of the synthetic video, and the CLI's
+# batch; the full path's launches per batch, and the cloud matcher's
+HOST = (128, 720, 1280, 128)
+HOST_BATCH = 8
+FULL_PATH_PER_BATCH = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
+                       "speckle_labels": 1, "speckle_keep": 1,
+                       "shift_gather": 1, "fgs_pass": 6}
+CLOUD_MATCHER = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
+                 "speckle_labels": 1, "speckle_keep": 1}
 
 
 def log(*a):
@@ -1929,6 +1954,236 @@ def phase_sharded(card, errs, frames, full_pipe):
     return launches, times, bounds
 
 
+def _cli(argv):
+    """cli.main(argv) with its standard output captured and returned;
+    raises where it exits with another code than 0."""
+    import contextlib
+    import io
+    from stereo_depth_ruler_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main([str(a) for a in argv])
+    if code != 0:
+        raise AssertionError(f"cli {argv[0]} exited {code}")
+    return buf.getvalue()
+
+
+def host_run(card, video, rig, cfg, n_frames, tmp, tag):
+    """The CLI's run on ``video``, its launches counted, its per-frame
+    metrics held bitwise to StereoPipeline.process_batch on the same
+    VideoSource batches; logs video_end_to_end_fps beside the
+    process_batch loop's frames/s and the upload's ms per batch."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.io.video import VideoSource
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    from stereo_depth_ruler_tpu_torch.pipeline import StereoPipeline
+    _, H, W, D = HOST
+    metrics = Path(tmp) / f"{tag}.jsonl"
+    for c in (sc, wc):
+        c.reset_launch_counts()
+    text = _cli(["run", video, "--batch", HOST_BATCH, "--num-disp", D,
+                 "--width", W, "--height", H, "--metrics", metrics,
+                 "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = {k: v for c in (sc, wc) for k, v in c.LAUNCHES.items() if v}
+    n_batches = -(-n_frames // HOST_BATCH)
+    want = {k: v * n_batches for k, v in FULL_PATH_PER_BATCH.items()}
+    log(f"host run {tag}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"cli run launched {launches}, the full path "
+                             f"{want}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    if [r["frame_index"] for r in recs] != list(range(n_frames)):
+        raise AssertionError(f"cli run wrote frames "
+                             f"{[r['frame_index'] for r in recs]}")
+
+    # the same frames through process_batch: per-frame stats bitwise, the
+    # loop's frames/s, and the upload alone
+    pipe = StereoPipeline(rig, cfg, device=DEVICE)
+    src = VideoSource(video)
+    batches = list(src.batches(HOST_BATCH))
+    pipe.process_batch(batches[0][1], batches[0][2])     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = [(idxs, pipe.process_batch(lefts, rights)["frame_stats"])
+             for idxs, lefts, rights in batches]
+    torch.cuda.synchronize()
+    loop_fps = n_frames / (time.perf_counter() - t0)
+    for idxs, st in stats:
+        st = st.cpu().numpy()
+        for k, fi in enumerate(idxs):
+            if fi < 0:
+                continue
+            r = recs[fi]
+            got = (r["valid_disparity_frac"], r["depth_coverage"],
+                   r["mean_depth_mm"])
+            if got != tuple(float(v) for v in st[k]):
+                raise AssertionError(f"cli run frame {fi}: {got} != "
+                                     f"process_batch {st[k]}")
+    up = []
+    for _, lefts, rights in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.as_tensor(lefts).to(DEVICE)
+        torch.as_tensor(rights).to(DEVICE)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t1) * 1e3)
+    log(f"host run {tag} [{card}]: video_end_to_end_fps "
+        f"{summary['video_end_to_end_fps']} (cli, {n_frames} frames, batch "
+        f"{HOST_BATCH}, decode + upload + matcher + WLS + stats); "
+        f"process_batch loop {loop_fps:.2f} frames/s; upload "
+        f"{np.mean(up):.3f} ms per batch ({batches[0][1].dtype} "
+        f"{tuple(batches[0][1].shape)} x 2, pageable); metrics equal "
+        f"bitwise on {n_frames} frames; valid "
+        f"{summary['valid_disparity_frac']:.4f}")
+
+
+def phase_host(card):
+    """The CLI and the cloud on the card: synth, run (counted, metrics
+    equal to process_batch), cloud (disparity equal to the plain matcher,
+    voxels equal to the CPU's), measure (equal to measure_distance)."""
+    import tempfile
+
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams, StereoRig
+    from stereo_depth_ruler_tpu_torch.cloud import (CloudConfig,
+                                                    PointCloudGenerator)
+    from stereo_depth_ruler_tpu_torch.io.pcd import read_pcd, write_pcd
+    from stereo_depth_ruler_tpu_torch.io.video import (VideoSource,
+                                                       read_sbsv, write_sbsv)
+    from stereo_depth_ruler_tpu_torch.measure import measure_distance
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops.voxel import voxel_downsample
+    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
+                                                       StereoPipeline)
+    from stereo_depth_ruler_tpu_torch.utils import native
+    n_frames, H, W, D = HOST
+    rig = StereoRig.synthetic(width=W, height=H)
+    # the CLI's configuration: _sgbm_params keeps SGBMParams' speckle
+    # 200/2, right matcher and WLS, u8 remap, downscale 1
+    params = SGBMParams(num_disparities=D, block_size=5, num_paths=8)
+    cfg = PipelineConfig(sgbm=params, downscale=1, use_wls=True,
+                         lr_mode="right_matcher")
+    frame = 3
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gray = Path(tmp) / "gray.sbsv"
+        t0 = time.perf_counter()
+        _cli(["synth", "--out", gray, "--gt-out", Path(tmp) / "gt.npy",
+              "--width", W, "--height", H, "--frames", n_frames,
+              "--seed", 0])
+        f = read_sbsv(gray)
+        bgr_frames = np.empty(f.shape + (3,), np.uint8)
+        for i in range(0, n_frames, HOST_BATCH):
+            g = f[i:i + HOST_BATCH].astype(np.float32)
+            bgr_frames[i:i + HOST_BATCH] = np.stack(
+                [g, 0.5 * g + 64.0, 0.8 * g], axis=-1).astype(np.uint8)
+        bgr = Path(tmp) / "bgr.sbsv"
+        write_sbsv(bgr, bgr_frames)
+        del f, bgr_frames
+        log(f"host: synth {n_frames} frames {W}x{H} and the BGR copy in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host_run(card, gray, rig, cfg, n_frames, tmp, "gray")
+        host_run(card, bgr, rig, cfg, n_frames, tmp, "bgr")
+
+        # cloud: the CLI's file, then its stages on the same frame
+        out_dir = Path(tmp) / "clouds"
+        _cli(["cloud", gray, "--frame", frame, "--num-disp", D, "--width",
+              W, "--height", H, "--out", out_dir, "--device", DEVICE])
+        pcd_xyz, _, _ = read_pcd(out_dir / f"frame_{frame:05d}.pcd")
+        left, right = next(VideoSource(gray).frames(start=frame))
+        gen = PointCloudGenerator(rig, CloudConfig(sgbm=params, leaf=5.0),
+                                  device=DEVICE)
+        lt = torch.tensor(np.float32(left), device=DEVICE)
+        rt = torch.tensor(np.float32(right), device=DEVICE)
+        sc.reset_launch_counts()
+        disp = gen.disparity(lt, rt)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in sc.LAUNCHES.items() if v}
+        if launches != CLOUD_MATCHER:
+            raise AssertionError(f"the cloud's matcher ran {launches}")
+        ref = plain.sgbm(lt[None], rt[None], params)[0]
+        if not torch.equal(disp, ref):
+            raise AssertionError(
+                f"cloud disparity differs from the plain matcher at "
+                f"{int((disp != ref).sum())} pixels")
+        pts = gen.kept_points(disp)
+        cols = torch.tensor(np.repeat(np.float32(left)[..., None], 3, 2
+                                      ).reshape(-1, 3), device=DEVICE)
+        vp, _, n = voxel_downsample(pts, cols, 5.0)
+        cp, _, cn = voxel_downsample(pts.cpu(), cols.cpu(), 5.0)
+        n, cn = int(n), int(cn)
+        err = max_abs_err(vp[:n].cpu(), cp[:cn])
+        if n != cn or err > 1e-3 or len(pcd_xyz) != n:
+            raise AssertionError(f"voxels: card {n}, CPU {cn}, file "
+                                 f"{len(pcd_xyz)}, max |err| {err}")
+        pcd_err = max_abs_err(torch.from_numpy(pcd_xyz), cp[:cn])
+        if pcd_err > 1e-3:
+            raise AssertionError(f"the CLI's cloud differs from the CPU "
+                                 f"voxels by {pcd_err}")
+        reps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            c = gen.cloud_from_pair(left, right)
+        cloud_ms = (time.perf_counter() - t0) * 1e3 / reps
+        t0 = time.perf_counter()
+        write_pcd(Path(tmp) / "w.pcd", c["points"], c["colors"])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        split = {"matcher": cuda_ms(lambda: gen.disparity(lt, rt), 3),
+                 "reproject + keep": cuda_ms(lambda: gen.kept_points(disp),
+                                             5),
+                 "voxel": cuda_ms(lambda: voxel_downsample(pts, cols, 5.0),
+                                  5)}
+        log(f"host cloud [{card}]: frame {frame}, {n} voxels of "
+            f"{int(torch.isfinite(pts).all(1).sum())} kept points (card == "
+            f"CPU, centroids max |err| {err:.2e}; file max |err| "
+            f"{pcd_err:.2e}); disparity == plain matcher; launches "
+            f"{launches}")
+        log(f"host cloud [{card}]: {cloud_ms:.3f} ms per cloud_from_pair "
+            f"(host clock, {reps} calls); matcher {split['matcher']:.3f}, "
+            f"reproject + keep {split['reproject + keep']:.3f}, voxel "
+            f"{split['voxel']:.3f} ms (CUDA events); PCD write "
+            f"{write_ms:.3f} ms (Python io/pcd.py; the native library is "
+            f"{'built' if native.available() else 'not built'})")
+
+        # measure: two points on the nearest box of frame 3
+        gt = np.load(Path(tmp) / "gt.npy")[frame]
+        near = gt[:, D + 16:] == gt[:, D + 16:].max()
+        ys, xs = np.nonzero(near)
+        y = int(np.median(ys))
+        row = xs[ys == y] + D + 16
+        p1 = (int(row[len(row) // 4]), y)
+        p2 = (int(row[3 * len(row) // 4]),
+              int(ys.min() + (ys.max() - ys.min()) // 4))
+        text = _cli(["measure", gray, "--frame", frame, "--num-disp", D,
+                     "--width", W, "--height", H, "--points",
+                     f"{p1[0]},{p1[1]},{p2[0]},{p2[1]}", "--device",
+                     DEVICE])
+        printed = text.strip().split(": ")[-1]
+        pipe = StereoPipeline(rig, cfg, device=DEVICE)    # the CLI's too
+        xyz = pipe.xyz_hwc(pipe.process_pair(left, right)["xyz"])
+        mine = f"{measure_distance(xyz, p1, p2) / 10.0:.5f} cm"
+        f_px, base = rig.Q[2, 3], 1.0 / rig.Q[3, 2]
+        cx, cy = -rig.Q[0, 3], -rig.Q[1, 3]
+
+        def gt_xyz(p):
+            z = f_px * base / gt[p[1], p[0]]
+            return np.array([(p[0] - cx) * z / f_px, (p[1] - cy) * z / f_px,
+                             z])
+
+        truth = np.linalg.norm(gt_xyz(p1) - gt_xyz(p2)) / 10.0
+        log(f"host measure: {p1} -> {p2} on the nearest box: cli "
+            f"{printed}, measure_distance on the pipeline's xyz {mine}, "
+            f"ground truth {truth:.5f} cm")
+        if printed != mine or "nan" in mine:
+            raise AssertionError(f"cli measure {printed} != {mine}")
+    log(f"host phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_path(card, pipe, frames, reps=3):
     """Device time by kernel over ``reps`` batches of the path, and the
     share of the wall time the device was busy (one stream, so the sum of
@@ -1991,6 +2246,8 @@ def main():
     phase_configs(card, errs, frames)
     launches6, times6, bounds6 = phase_sharded(card, errs, frames, full_pipe)
     del full_pipe
+    torch.cuda.empty_cache()
+    phase_host(card)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})

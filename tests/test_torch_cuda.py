@@ -880,3 +880,59 @@ def test_dryrun_multichip_on_the_cards(cuda):
     want = "(frame=1, tile=2, disp=2)" if n == 4 else \
         "(frame=1, tile=1, disp=1)"
     assert msg.startswith(f"dryrun_multichip ok: mesh{want} on cuda"), msg
+
+
+def test_voxels_on_the_card_key_as_the_cpu(cuda):
+    """voxel_downsample on a CUDA tensor keys points on a voxel edge by the
+    float32 product floor(x * (1 / leaf)), as the CPU does, and counts and
+    orders voxels as the CPU does."""
+    from stereo_depth_ruler_tpu_torch.ops.voxel import voxel_downsample
+    x = np.array([776.99994, 857.99994, 989.99994, -121.8, -809.9],
+                 np.float32)
+    edge = np.floor(x / np.float32(3)) != np.floor(
+        x * (np.float32(1) / np.float32(3)))
+    assert edge.any()
+    rng = np.random.default_rng(0)
+    xyz = rng.uniform(-1000, 1000, (20000, 3)).astype(np.float32)
+    xyz[:5, 0] = x
+    xyz[7::97] = np.nan
+    rgb = rng.uniform(0, 255, xyz.shape).astype(np.float32)
+    for leaf in (3.0, 0.7, 5.0, 25.0):
+        got = voxel_downsample(torch.tensor(xyz, device=cuda),
+                               torch.tensor(rgb, device=cuda), leaf)
+        want = voxel_downsample(torch.tensor(xyz), torch.tensor(rgb), leaf)
+        n = int(got[2])
+        assert n == int(want[2])
+        if leaf == 3.0:
+            # each edge point is a voxel of its own, keyed by the product
+            keys = np.floor(got[0][:n, 0].cpu().numpy()
+                            * (np.float32(1) / np.float32(leaf)))
+            for k in np.floor(x[edge] * (np.float32(1) / np.float32(leaf))):
+                assert k in keys
+        np.testing.assert_allclose(got[0][:n].cpu().numpy(),
+                                   want[0][:n].numpy(), atol=1e-3)
+        np.testing.assert_allclose(got[1][:n].cpu().numpy(),
+                                   want[1][:n].numpy(), atol=1e-2)
+
+
+def test_cloud_on_the_card_matches_the_cpu(cuda):
+    """PointCloudGenerator on the card (K1-K5) against its plain versions
+    on the CPU: the disparity bitwise, the voxel count exact."""
+    from stereo_depth_ruler_tpu_torch.cloud import (CloudConfig,
+                                                    PointCloudGenerator)
+    rig = StereoRig.synthetic(width=160, height=96, focal=90.0,
+                              baseline_mm=60.0)
+    scene = make_scene(rig, n_boxes=3, z_range_mm=(300.0, 800.0),
+                       background_z_mm=1500.0, seed=2)
+    left, right, _ = render_stereo_pair(scene, seed=2)
+    cfg = CloudConfig(sgbm=SGBMParams(num_disparities=32,
+                                      speckle_window_size=50), leaf=5.0)
+    sc.reset_launch_counts()
+    got = PointCloudGenerator(rig, cfg, device=cuda).cloud_from_pair(left,
+                                                                    right)
+    assert sc.LAUNCHES["cost_box"] == 1 and sc.LAUNCHES["speckle_keep"] == 1
+    want = PointCloudGenerator(rig, cfg, device="cpu").cloud_from_pair(left,
+                                                                       right)
+    np.testing.assert_array_equal(got["disparity"], want["disparity"])
+    assert got["count"] == want["count"] > 100
+    np.testing.assert_allclose(got["points"], want["points"], atol=1e-3)

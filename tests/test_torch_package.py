@@ -23,8 +23,19 @@ PORT = ROOT / "stereo_depth_ruler_tpu_torch"
 MODULES = ["stereo_depth_ruler_tpu_torch",
            "stereo_depth_ruler_tpu_torch.metrics",
            "stereo_depth_ruler_tpu_torch.pipeline",
+           "stereo_depth_ruler_tpu_torch.cli",
+           "stereo_depth_ruler_tpu_torch.cloud",
+           "stereo_depth_ruler_tpu_torch.measure",
+           "stereo_depth_ruler_tpu_torch.viz",
+           "stereo_depth_ruler_tpu_torch.viewer",
            "stereo_depth_ruler_tpu_torch.calib.config",
+           "stereo_depth_ruler_tpu_torch.calib.calibrate",
            "stereo_depth_ruler_tpu_torch.io.synthetic",
+           "stereo_depth_ruler_tpu_torch.io.pcd",
+           "stereo_depth_ruler_tpu_torch.io.video",
+           "stereo_depth_ruler_tpu_torch.ops.voxel",
+           "stereo_depth_ruler_tpu_torch.utils.native",
+           "stereo_depth_ruler_tpu_torch.utils.capture",
            "stereo_depth_ruler_tpu_torch.ops.sgbm",
            "stereo_depth_ruler_tpu_torch.ops.sgbm_ref",
            "stereo_depth_ruler_tpu_torch.ops.sgbm_cuda",
@@ -75,7 +86,7 @@ def _imported_roots(path):
        "tools/profile_stages_torch.py", "tools/pair_tile_ab.py",
        "tools/speckle_tile_ab.py", "tools/speckle_probe.py",
        "tools/sorted_runs_probe.py", "tools/path_digest.py",
-       "tests/torch_parallel_cases.py"]))
+       "tools/mae_torch.py", "tests/torch_parallel_cases.py"]))
 def test_no_jax_package_import(path):
     roots = _imported_roots(ROOT / path)
     assert not roots & {"jax", "jaxlib", "stereo_depth_ruler_tpu"}, roots
@@ -124,6 +135,68 @@ def test_copied_rig_and_scene_match():
                                 seed=6, shift=(1.5, 0.0))
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+# module of the JAX package -> its counterpart in the port, where the name
+# differs; utils/cache.py, JAX's persistent compile cache, has none
+COUNTERPARTS = {"ops/sgbm_pallas.py": "ops/sgbm_cuda.py",
+                "ops/sort_tpu.py": "ops/sort_cuda.py",
+                "ops/wls_pallas.py": "ops/wls_cuda.py",
+                "utils/cache.py": None}
+
+
+def test_every_jax_module_has_a_counterpart():
+    jax_pkg = ROOT / "stereo_depth_ruler_tpu"
+    missing = []
+    for p in sorted(jax_pkg.rglob("*.py")):
+        rel = p.relative_to(jax_pkg).as_posix()
+        mine = COUNTERPARTS.get(rel, rel)
+        if mine is not None and not (PORT / mine).is_file():
+            missing.append(rel)
+    assert not missing, missing
+    assert not (PORT / "utils" / "cache.py").exists()
+
+
+# copies of the JAX package's framework-free modules: every line after the
+# first (the note naming the source) is the source's
+VERBATIM = ["io/pcd.py", "utils/native.py", "measure.py", "viz.py",
+            "viewer.py", "calib/calibrate.py"]
+# partial copies: every top-level function and class is the source's, but
+# for the ones the port rewrites
+PARTIAL = {"metrics.py": {"batch_frame_stats"},
+           "io/video.py": {"host_batches"},
+           "utils/capture.py": {"image_disparity"}}
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copies_match_their_sources(rel):
+    first, body = (PORT / rel).read_text().split("\n", 1)
+    assert first == (f"# Copy of stereo_depth_ruler_tpu/{rel}: the port "
+                     "keeps its own, framework-free.")
+    assert body == (ROOT / "stereo_depth_ruler_tpu" / rel).read_text()
+
+
+def _top_level(path):
+    text = path.read_text()
+    return {n.name: ast.get_source_segment(text, n)
+            for n in ast.parse(text).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("rel", sorted(PARTIAL))
+def test_partial_copies_match_their_sources(rel):
+    mine = _top_level(PORT / rel)
+    src = _top_level(ROOT / "stereo_depth_ruler_tpu" / rel)
+    assert mine.keys() == src.keys()
+    for name in src.keys() - PARTIAL[rel]:
+        assert mine[name] == src[name], name
+    for name in PARTIAL[rel]:
+        assert mine[name] != src[name], name
+
+
+def test_native_library_path_is_the_repos():
+    from stereo_depth_ruler_tpu_torch.utils import native
+    assert native._LIB_PATH == ROOT / "native" / "libsdrhost.so"
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

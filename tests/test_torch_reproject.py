@@ -71,3 +71,21 @@ def test_batch_frame_stats(disp, Q):
                                z_max=3000.0),
           jm.batch_frame_stats(jnp.asarray(disp), z_j, skip_cols=8,
                                z_max=3000.0))
+
+
+def test_batch_frame_stats_fractions_bitwise():
+    """The valid fraction and the depth coverage equal the JAX pipeline's
+    (its jitted batch_frame_stats) bit for bit at every count of a 12x16
+    frame: XLA multiplies a count by the float32 reciprocal of the pixel
+    count, which a true division misses by an ulp for some counts."""
+    import jax
+    H, W = 12, 16
+    k = np.arange(H * W + 1)
+    on = (np.arange(H * W)[None, :] < k[:, None]).reshape(-1, H, W)
+    disp = np.where(on, 5.0, -1.0).astype(np.float32)
+    z = np.where(on, 800.0, np.inf).astype(np.float32)
+    want = np.asarray(jax.jit(jm.batch_frame_stats)(jnp.asarray(disp),
+                                                    jnp.asarray(z)))
+    got = tm.batch_frame_stats(torch.tensor(disp), torch.tensor(z)).numpy()
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_array_equal(got, want)
