@@ -119,7 +119,20 @@ Phases, each of which raises (and exits non-zero) on failure:
    card's own kept points (centroids at atol 1e-3), the PCD file too, ms
    per cloud_from_pair with its split (matcher, reproject + keep, voxel,
    PCD write); the CLI's measure on two points of the nearest box equal
-   to measure_distance on the pipeline's own xyz, beside the ground truth.
+   to measure_distance on the pipeline's own xyz, beside the ground truth;
+12. bench (stereo_depth_ruler_tpu_torch/bench.py and entry.py): the
+   pinned cv2.StereoSGBM baseline (30 frames x 5 trials, the host CPU and
+   cv2's threads logged); bench_flagship on bench.make_inputs() (batch 8,
+   1280x720x128, LR, speckle 200/2, reprojected depth), its first batch
+   bitwise equal to the plain matcher + reproject_to_3d frame by frame;
+   bench_full_pipeline, its disparity and xyz bitwise equal to
+   StereoPipeline.process_batch on the uint8 frames; bench_sweep
+   (2560x1440x256) bitwise equal to the plain matcher; the launches of
+   every call exact (the matcher: K1, K2 x8, K3, K4, K5; the full path:
+   those, K7 and K6 x6); each timed run's CUDA-event span within 5 % of
+   its host-clock span; entry()'s forward bitwise equal to the plain
+   matcher and entry_full_pipeline()'s launching the full path once;
+   then the card and the bench's JSON line.
 
 The last lines are the card's name and power limit, a JSON object with one
 record per kernel, and the JSON object {"ok": true, "device": {...}}. The
@@ -229,13 +242,14 @@ MAIN = (8, 720, 1280, 128)
 # (H, W, D) of the stress shape (the JAX package's bench.py:181-192)
 STRESS = (1440, 2560, 256)
 # the host phase: frames, H, W and D of the synthetic video, and the CLI's
-# batch; the full path's launches per batch, and the cloud matcher's
+# batch; the full path's launches per batch, and the matcher's with the
+# speckle filter per call (the cloud's, the bench flagship's, entry()'s)
 HOST = (128, 720, 1280, 128)
 HOST_BATCH = 8
 FULL_PATH_PER_BATCH = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
                        "speckle_labels": 1, "speckle_keep": 1,
                        "shift_gather": 1, "fgs_pass": 6}
-CLOUD_MATCHER = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
+MATCHER_PER_CALL = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
                  "speckle_labels": 1, "speckle_keep": 1}
 
 
@@ -1968,6 +1982,27 @@ def _cli(argv):
     return buf.getvalue()
 
 
+def _counted(fn):
+    """fn()'s result and the kernels it launched (sgbm_cuda's and
+    wls_cuda's counts, set to 0 just before), the device synchronised."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    for c in (sc, wc):
+        c.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for c in (sc, wc) for k, v in c.LAUNCHES.items() if v}
+
+
+def _expect_launches(tag, launches, per_call, calls):
+    """Raise unless ``launches`` are ``per_call`` times ``calls``."""
+    want = {k: v * calls for k, v in per_call.items()}
+    log(f"{tag}: launches {launches} in {calls} calls")
+    if launches != want:
+        raise AssertionError(f"{tag} launched {launches}, want {want}")
+
+
 def host_run(card, video, rig, cfg, n_frames, tmp, tag):
     """The CLI's run on ``video``, its launches counted, its per-frame
     metrics held bitwise to StereoPipeline.process_batch on the same
@@ -1975,24 +2010,14 @@ def host_run(card, video, rig, cfg, n_frames, tmp, tag):
     process_batch loop's frames/s and the upload's ms per batch."""
     import torch
     from stereo_depth_ruler_tpu_torch.io.video import VideoSource
-    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
-    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
     from stereo_depth_ruler_tpu_torch.pipeline import StereoPipeline
     _, H, W, D = HOST
     metrics = Path(tmp) / f"{tag}.jsonl"
-    for c in (sc, wc):
-        c.reset_launch_counts()
-    text = _cli(["run", video, "--batch", HOST_BATCH, "--num-disp", D,
-                 "--width", W, "--height", H, "--metrics", metrics,
-                 "--device", DEVICE])
-    torch.cuda.synchronize()
-    launches = {k: v for c in (sc, wc) for k, v in c.LAUNCHES.items() if v}
-    n_batches = -(-n_frames // HOST_BATCH)
-    want = {k: v * n_batches for k, v in FULL_PATH_PER_BATCH.items()}
-    log(f"host run {tag}: launches {launches}")
-    if launches != want:
-        raise AssertionError(f"cli run launched {launches}, the full path "
-                             f"{want}")
+    text, launches = _counted(lambda: _cli(
+        ["run", video, "--batch", HOST_BATCH, "--num-disp", D, "--width", W,
+         "--height", H, "--metrics", metrics, "--device", DEVICE]))
+    _expect_launches(f"host run {tag}", launches, FULL_PATH_PER_BATCH,
+                     -(-n_frames // HOST_BATCH))
     summary = json.loads(text.strip().splitlines()[-1])
     recs = [json.loads(line) for line in metrics.read_text().splitlines()]
     if [r["frame_index"] for r in recs] != list(range(n_frames)):
@@ -2055,7 +2080,6 @@ def phase_host(card):
                                                        read_sbsv, write_sbsv)
     from stereo_depth_ruler_tpu_torch.measure import measure_distance
     from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
-    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
     from stereo_depth_ruler_tpu_torch.ops.voxel import voxel_downsample
     from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
                                                        StereoPipeline)
@@ -2099,12 +2123,8 @@ def phase_host(card):
                                   device=DEVICE)
         lt = torch.tensor(np.float32(left), device=DEVICE)
         rt = torch.tensor(np.float32(right), device=DEVICE)
-        sc.reset_launch_counts()
-        disp = gen.disparity(lt, rt)
-        torch.cuda.synchronize()
-        launches = {k: v for k, v in sc.LAUNCHES.items() if v}
-        if launches != CLOUD_MATCHER:
-            raise AssertionError(f"the cloud's matcher ran {launches}")
+        disp, launches = _counted(lambda: gen.disparity(lt, rt))
+        _expect_launches("host cloud", launches, MATCHER_PER_CALL, 1)
         ref = plain.sgbm(lt[None], rt[None], params)[0]
         if not torch.equal(disp, ref):
             raise AssertionError(
@@ -2184,6 +2204,173 @@ def phase_host(card):
     log(f"host phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def _check_spans(tag, run):
+    """Each timed run's CUDA-event span against its host-clock span (from
+    before its first launch to after a synchronize): the events must
+    bracket the device work, so the two agree."""
+    ratios = [e / h for e, h in zip(run.event_ms, run.host_ms)]
+    log(f"bench {tag}: event ms {run.event_ms}, host-clock ms "
+        f"{run.host_ms}, event / host {ratios}")
+    if min(ratios) < 0.95:
+        raise AssertionError(f"{tag}: the events' span is shorter than the "
+                             f"host clock's: {ratios}")
+
+
+def _check_plain_full(tag, pipe, got, lefts, rights):
+    """``got``, the full pipeline's (B, ...) outputs on ``lefts``,
+    ``rights``, against its plain path: rectify at the pipeline's remap
+    precision, the plain matcher on each frame's left view and mirrored
+    right view, the plain WLS and reproject_to_3d; every output bitwise."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import wls as wplain
+    from stereo_depth_ruler_tpu_torch.ops.remap import remap_bilinear
+    from stereo_depth_ruler_tpu_torch.ops.reproject import reproject_to_3d
+    cfg, params = pipe.config, pipe.config.sgbm
+    lr, rr = (remap_bilinear(torch.as_tensor(f, dtype=torch.float32,
+                                             device=DEVICE), g,
+                             cfg.remap_precision)
+              for f, g in ((lefts, pipe.grid_l), (rights, pipe.grid_r)))
+    dl, dr = torch.empty_like(lr), torch.empty_like(lr)
+    for i in range(lr.shape[0]):
+        dd = plain.sgbm(torch.stack([lr[i], rr[i].flip(-1)]),
+                        torch.stack([rr[i], lr[i].flip(-1)]), params)
+        dl[i], dr[i] = dd[0], dd[1].flip(-1)
+    disp, conf = wplain.wls_disparity_filter(
+        dl, dr, lr, max_disp=params.num_disparities + params.min_disparity)
+    want = {"left_rectified": lr, "right_rectified": rr, "disparity": disp,
+            "confidence": conf,
+            "xyz": reproject_to_3d(disp, pipe.rig.Q,
+                                   quirk_compat=cfg.quirk_compat,
+                                   handle_missing=cfg.handle_missing,
+                                   layout="chw")}
+    for k, v in want.items():
+        if not torch.equal(got[k], v):
+            raise AssertionError(f"{tag}: {k} differs from the plain path")
+    log(f"{tag}: {', '.join(want)} bitwise equal to the plain path on "
+        f"{lr.shape[0]} frames (rectify {cfg.remap_precision}, valid "
+        f"{float((disp >= 0).float().mean())})")
+
+
+def phase_bench(card):
+    """The port's bench (stereo_depth_ruler_tpu_torch/bench.py) and entry
+    points on the card: the flagship (batch 8, LR, speckle 200/2, depth),
+    its first batch bitwise to the plain matcher + reproject_to_3d frame by
+    frame; the full pipeline, its first batch bitwise to the plain path
+    (rectify, the plain matcher on each frame's left and mirrored right
+    view, the plain WLS, reproject_to_3d) and to
+    StereoPipeline.process_batch on the uint8 frames; the 2560x1440x256
+    sweep bitwise to the plain matcher; launches per call exact for each;
+    the pinned cv2 baseline (30 frames x 5 trials); entry()'s forward on
+    its noise pair and on the bench's first frame, disparity and xyz
+    bitwise to the plain matcher + reproject_to_3d, and
+    entry_full_pipeline() launching the full path once. Prints the bench's
+    JSON line."""
+    import cv2
+    import torch
+    from stereo_depth_ruler_tpu_torch import bench, entry
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops.reproject import reproject_to_3d
+    t_phase = time.perf_counter()
+    rig, lefts, rights = bench.make_inputs()
+    log(f"bench: cv2 {cv2.__version__}, {cv2.getNumThreads()} threads, "
+        f"host CPU {bench.host_cpu()!r}")
+    cv_fps = bench.bench_opencv(lefts, rights)
+
+    flag, launches = _counted(lambda: bench.bench_flagship(
+        rig, lefts, rights, device=DEVICE))
+    _expect_launches("bench flagship", launches, MATCHER_PER_CALL,
+                     flag.calls)
+    _check_spans("flagship", flag)
+    params = entry.flagship_params(bench.D)
+    disp, z = flag.first
+    for i in range(len(lefts)):
+        ref = plain.sgbm(torch.tensor(np.float32(lefts[i:i + 1]),
+                                      device=DEVICE),
+                         torch.tensor(np.float32(rights[i:i + 1]),
+                                      device=DEVICE), params)
+        if not (torch.equal(disp[i:i + 1], ref) and torch.equal(
+                z[i:i + 1], reproject_to_3d(ref, rig.Q)[..., 2])):
+            raise AssertionError(f"bench flagship frame {i} differs from "
+                                 f"the plain matcher + reproject_to_3d")
+        if i == 0:
+            ref0 = ref[0]
+    log(f"bench flagship: {len(lefts)} frames bitwise equal to the plain "
+        f"matcher + reproject_to_3d; {flag.fps} frames/s")
+    flag.first = None
+    del disp, z, ref
+
+    full, launches = _counted(lambda: bench.bench_full_pipeline(
+        rig, lefts, rights, device=DEVICE))
+    _expect_launches("bench full pipeline", launches, FULL_PATH_PER_BATCH,
+                     full.calls)
+    _check_spans("full pipeline", full)
+    pipe = entry.full_pipeline(rig, params, DEVICE)
+    want = pipe.process_batch(lefts, rights)
+    for k in ("disparity", "xyz"):
+        if not torch.equal(full.first[k], want[k]):
+            raise AssertionError(f"bench full pipeline: {k} differs from "
+                                 f"process_batch on the uint8 frames")
+    want = None
+    _check_plain_full("bench full pipeline", pipe, full.first, lefts, rights)
+    log(f"bench full pipeline: bitwise equal to process_batch on the "
+        f"uint8 frames; {full.fps} frames/s")
+    full.first = None
+    torch.cuda.empty_cache()
+
+    sweep, launches = _counted(lambda: bench.bench_sweep(device=DEVICE))
+    _expect_launches("bench sweep", launches, MATCHER_PER_CALL,
+                     sweep.calls)
+    _check_spans("sweep", sweep)
+    got, sweep.first = sweep.first, None
+    torch.cuda.empty_cache()
+    left, right = bench.sweep_inputs(*bench.SWEEP[:2])
+    ref = plain.sgbm(torch.tensor(left[None], device=DEVICE),
+                     torch.tensor(right[None], device=DEVICE),
+                     entry.flagship_params(bench.SWEEP[2]))
+    if not torch.equal(got, ref):
+        raise AssertionError(f"bench sweep differs from the plain matcher "
+                             f"at {int((got != ref).sum())} pixels")
+    log(f"bench sweep: bitwise equal to the plain matcher (valid "
+        f"{float((got >= 0).float().mean())}); {sweep.fps} frames/s")
+    del got, ref
+    torch.cuda.empty_cache()
+
+    # entry()'s forward on its own noise pair (few valid pixels) and on
+    # the bench's first frame (a scene), against the plain matcher and
+    # reproject_to_3d; the synthetic rig is the bench's
+    fn, (left, right) = entry.entry(DEVICE)
+    outs, launches = _counted(lambda: [fn(left, right),
+                                       fn(lefts[0], rights[0])])
+    _expect_launches("bench entry()", launches, MATCHER_PER_CALL, 2)
+    refs = [plain.sgbm(left[None], right[None], params)[0], ref0]
+    for tag, (disp, xyz), ref in zip(("its pair", "the bench's frame 0"),
+                                     outs, refs):
+        if not (torch.equal(disp, ref)
+                and torch.equal(xyz, reproject_to_3d(ref, rig.Q))):
+            raise AssertionError(f"entry()'s forward on {tag} differs from "
+                                 f"the plain matcher + reproject_to_3d")
+        log(f"bench entry() on {tag}: disparity {tuple(disp.shape)} and "
+            f"xyz {tuple(xyz.shape)} bitwise equal to the plain matcher + "
+            f"reproject_to_3d, valid {float((disp >= 0).float().mean())}")
+    del outs, refs, ref0
+    fn, (left, right) = entry.entry_full_pipeline(DEVICE)
+    out, launches = _counted(lambda: fn(left, right))
+    _expect_launches("bench entry_full_pipeline()", launches,
+                     FULL_PATH_PER_BATCH, 1)
+    _check_plain_full("bench entry_full_pipeline()", pipe,
+                      {k: v[None] for k, v in out.items()}, left[None],
+                      right[None])
+    del disp, xyz, ref, out, pipe
+    torch.cuda.empty_cache()
+
+    line = bench.result_line(cv_fps, flag, full, sweep,
+                             bench.card_name(torch.device(DEVICE)))
+    log(f"bench phase: {time.perf_counter() - t_phase:.1f} s")
+    log(card)
+    log(json.dumps(line))
+
+
 def profile_path(card, pipe, frames, reps=3):
     """Device time by kernel over ``reps`` batches of the path, and the
     share of the wall time the device was busy (one stream, so the sum of
@@ -2248,6 +2435,8 @@ def main():
     del full_pipe
     torch.cuda.empty_cache()
     phase_host(card)
+    torch.cuda.empty_cache()
+    phase_bench(card)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
     launches.update({k: launches3[k] for k in PAIR_MODES})

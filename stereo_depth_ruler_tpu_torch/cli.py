@@ -12,7 +12,9 @@ Commands:
   measure    two-point distances on a chosen frame -> CSV session
   cloud      point-cloud export (the point_cloud binary)
   calibrate  chessboard stereo calibration -> stereo.yaml
-  bench      the port's benchmark is not written yet: exits 2
+  bench      frames/s on the card against the OpenCV CPU baseline
+             (``bench.py``'s flags but ``--no-pallas``, plus
+             ``--device``; one JSON line)
   synth      generate a synthetic side-by-side test video
 
 Usage: python -m stereo_depth_ruler_tpu_torch.cli <command> [flags]
@@ -264,11 +266,25 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def bench_arguments(p) -> None:
+    """bench.py's flags (but ``--no-pallas``) plus ``--device``; shared by
+    ``bench`` here and ``python -m stereo_depth_ruler_tpu_torch.bench``."""
+    p.add_argument("--no-full", action="store_true",
+                   help="skip the full pipeline")
+    p.add_argument("--sweep", action="store_true",
+                   help="also run the 2560x1440x256 stress config")
+    p.add_argument("--iters", type=int, default=8)
+    p.add_argument("--cv-frames", type=int, default=30)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the kernels) or cpu (their "
+                        "plain versions)")
+
+
 def cmd_bench(args) -> int:
-    print("bench: the port has no benchmark yet (ROADMAP M0); "
-          "python3 chip_smoke.py times its paths and kernels on the card",
-          file=sys.stderr)
-    return 2
+    # in-process: the JAX CLI runs bench.py in a subprocess only because
+    # two JAX processes cannot share the TPU
+    from .bench import run
+    return run(args)
 
 
 def _common(p, video=True):
@@ -340,8 +356,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_synth)
 
-    p = sub.add_parser("bench", help="per-chip benchmark (not written yet "
-                                     "for the port: exits 2)")
+    p = sub.add_parser("bench", help="per-card benchmark")
+    bench_arguments(p)
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -27,8 +27,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
-           "on_cuda", "require", "stream"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "library_path", "status",
+           "build", "load", "check", "on_cuda", "require", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "ops" / "csrc"
@@ -137,15 +137,28 @@ def _run_all(cmds) -> list:
     return logs
 
 
-def build() -> Path:
-    """Build the kernel library if it is not built yet; return its path.
-    The compiler's register and shared-memory report goes to a ``.log``
-    file beside the library."""
+def library_path() -> Path:
+    """The path of the kernel library for the current sources and flags,
+    built or not."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + _LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    lib = BUILD_DIR / f"libsdr_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libsdr_kernels_{h.hexdigest()[:16]}.so"
+
+
+def status() -> str:
+    """"loaded", "built" (on disk, not loaded yet) or "not built"."""
+    if _lib is not None:
+        return "loaded"
+    return "built" if library_path().exists() else "not built"
+
+
+def build() -> Path:
+    """Build the kernel library if it is not built yet; return its path.
+    The compiler's register and shared-memory report goes to a ``.log``
+    file beside the library."""
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -7,10 +7,12 @@ indices, valid fractions and depth coverages are equal, the mean depth at
 rtol 1e-5 (a float sum whose order differs between XLA and PyTorch);
 with WLS every value is held at the WLS bound (rtol 2e-3, atol 2e-2).
 ``measure`` and ``cloud`` give the JAX CLI's output within the same
-tolerances."""
+tolerances. ``bench`` runs in-process at a cut shape and prints one JSON
+line with the JAX bench's keys plus ``device``."""
 
 import json
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from stereo_depth_ruler_tpu_torch import cli
 from stereo_depth_ruler_tpu_torch.io.pcd import read_pcd
 from stereo_depth_ruler_tpu_torch.io.video import read_sbsv, write_sbsv
 
+ROOT = Path(__file__).resolve().parent.parent
 SIZE = ["--width", "96", "--height", "48"]
 MATCH = SIZE + ["--num-disp", "16"]
 RTOL = 1e-5
@@ -175,32 +178,96 @@ def test_cloud_matches_jax(tmp_path, capsys, videos):
     assert np.abs(tc.astype(int) - jc.astype(int)).max() <= 1
 
 
-def test_bench_exits_2_without_timing(capsys, monkeypatch):
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "cv_baseline_fps",
+              "compile_s", "full_pipeline_fps", "full_pipeline_vs_cv_sgbm",
+              "sweep_2560x1440x256_fps"}
+
+
+@pytest.fixture
+def small_bench(monkeypatch):
+    """The bench's shapes cut to 2 frames of 96x48 with 16 disparities,
+    the sweep to 40x80x16."""
+    import functools
+    from stereo_depth_ruler_tpu_torch import bench
+    monkeypatch.setattr(bench, "H", 48)
+    monkeypatch.setattr(bench, "W", 96)
+    monkeypatch.setattr(bench, "D", 16)
+    monkeypatch.setattr(bench, "SWEEP", (40, 80, 16))
+    monkeypatch.setattr(bench, "make_inputs",
+                        functools.partial(bench.make_inputs, batch=2))
+
+
+def _bench_line(capsys, argv):
     import subprocess
 
     def refuse(*a, **k):
-        raise AssertionError("bench must not start a process")
+        raise AssertionError("bench must run in-process")
 
-    monkeypatch.setattr(subprocess, "call", refuse)
-    assert cli.main(["bench"]) == 2
-    assert "M0" in capsys.readouterr().err
-
-
-def test_bench_takes_no_flags():
-    """The JAX bench's flags are not carried: the port's benchmark (M0)
-    adds the flags its harness reads."""
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["bench", "--no-full"])
-    assert exc.value.code == 2
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(subprocess, "call", refuse)
+        assert cli.main(["bench", "--device", "cpu", "--iters", "1",
+                         "--cv-frames", "1"] + argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    return json.loads(lines[0])
 
 
-@pytest.mark.parametrize("cmd", ["run", "measure", "cloud"])
+def test_bench_prints_the_jax_bench_keys(capsys, small_bench):
+    """bench.py's keys and meanings, plus the device it ran on."""
+    pytest.importorskip("cv2")
+    line = _bench_line(capsys, ["--sweep"])
+    assert set(line) == BENCH_KEYS | {"device"}
+    assert line["metric"] == "stereo_fps_per_chip_96x48_16disp_sgbm"
+    assert line["unit"] == "frames/s" and line["device"] == "cpu"
+    for k in ("value", "cv_baseline_fps", "full_pipeline_fps",
+              "sweep_2560x1440x256_fps"):
+        assert line[k] > 0, k
+    assert line["vs_baseline"] == round(line["value"]
+                                         / line["cv_baseline_fps"], 3)
+    assert set(line["compile_s"]) == {"sgbm", "full_pipeline"}
+
+
+def test_bench_module_takes_the_cli_flags(capsys, small_bench):
+    """``python -m stereo_depth_ruler_tpu_torch.bench`` parses the CLI's
+    bench flags: --no-full drops the full pipeline's keys."""
+    pytest.importorskip("cv2")
+    from stereo_depth_ruler_tpu_torch import bench
+    assert bench.main(["--device", "cpu", "--iters", "1", "--cv-frames",
+                       "1", "--no-full"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert set(line) == BENCH_KEYS - {
+        "full_pipeline_fps", "full_pipeline_vs_cv_sgbm",
+        "sweep_2560x1440x256_fps"} | {"device"}
+    assert line["value"] > 0 and set(line["compile_s"]) == {"sgbm"}
+
+
+def test_only_bench_imports_the_bench_module(tmp_path):
+    """Building the parser and running another command leaves the bench
+    module (and the entry points it loads) unimported."""
+    import subprocess
+    import sys
+    code = ("import sys; from stereo_depth_ruler_tpu_torch import cli; "
+            f"cli.main(['synth', '--out', {str(tmp_path / 'v.sbsv')!r}, "
+            "'--frames', '1', '--width', '64', '--height', '32']); "
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "'stereo_depth_ruler_tpu_torch.') and m.rsplit('.', 1)[1] in "
+            "('bench', 'entry')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("cmd", ["run", "measure", "cloud", "bench"])
 def test_cuda_device_without_cuda_raises(monkeypatch, videos, cmd):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    extra = {"measure": ["--points", "1,1,2,2"], "cloud": ["--frame", "0"],
-             "run": []}[cmd]
+    argv = {"measure": [str(videos[0])] + MATCH + ["--points", "1,1,2,2"],
+            "cloud": [str(videos[0])] + MATCH + ["--frame", "0"],
+            "run": [str(videos[0])] + MATCH,
+            "bench": ["--iters", "1", "--cv-frames", "1"]}[cmd]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main([cmd, str(videos[0])] + MATCH + extra)
+        cli.main([cmd] + argv)
 
 
 def test_calibrate_refuses_frames_without_a_board(tmp_path):

@@ -936,3 +936,33 @@ def test_cloud_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(got["disparity"], want["disparity"])
     assert got["count"] == want["count"] > 100
     np.testing.assert_allclose(got["points"], want["points"], atol=1e-3)
+
+
+def test_bench_and_entry_match_plain_on_the_card(cuda, monkeypatch):
+    """The bench's flagship (2 frames of 160x96, 32 disparities, LR,
+    speckle 200/2, depth) and entry()'s forward on the card, disparity and
+    depth or xyz bitwise equal to the plain matcher + reproject_to_3d on
+    the same tensors."""
+    from stereo_depth_ruler_tpu_torch import bench, entry
+    from stereo_depth_ruler_tpu_torch.ops.reproject import reproject_to_3d
+    H, W, D = 96, 160, 32
+    monkeypatch.setattr(bench, "H", H)
+    monkeypatch.setattr(bench, "W", W)
+    monkeypatch.setattr(bench, "D", D)
+    rig, lefts, rights = bench.make_inputs(batch=2)
+    sc.reset_launch_counts()
+    run = bench.bench_flagship(rig, lefts, rights, iters=1, device="cuda")
+    torch.cuda.synchronize()
+    assert run.fps > 0 and sc.LAUNCHES["speckle_keep"] == run.calls
+    disp, z = run.first
+    params = entry.flagship_params(D)
+    ref = plain.sgbm(torch.tensor(np.float32(lefts), device=cuda),
+                     torch.tensor(np.float32(rights), device=cuda), params)
+    assert torch.equal(disp, ref)
+    assert torch.equal(z, reproject_to_3d(ref, rig.Q)[..., 2])
+    fwd, rig, params = entry._flagship(H, W, D, device="cuda")
+    left, right = entry._example_pair(H, W, cuda)
+    d, xyz = fwd(left, right)
+    ref = plain.sgbm(left[None], right[None], params)[0]
+    assert torch.equal(d, ref)
+    assert torch.equal(xyz, reproject_to_3d(ref, rig.Q))

@@ -24,6 +24,8 @@ MODULES = ["stereo_depth_ruler_tpu_torch",
            "stereo_depth_ruler_tpu_torch.metrics",
            "stereo_depth_ruler_tpu_torch.pipeline",
            "stereo_depth_ruler_tpu_torch.cli",
+           "stereo_depth_ruler_tpu_torch.bench",
+           "stereo_depth_ruler_tpu_torch.entry",
            "stereo_depth_ruler_tpu_torch.cloud",
            "stereo_depth_ruler_tpu_torch.measure",
            "stereo_depth_ruler_tpu_torch.viz",
