@@ -23,9 +23,15 @@ Phases, each of which raises (and exits non-zero) on failure:
 5. main path, slice 1: StereoPipeline.process_batch on 8 synthetic
    1280x720 frames (u8 rectify, 128 disparities, 8 paths, in-matcher LR,
    speckle off), checked against the rendered ground truth, with launch
-   counts, frames/s and peak memory; then K1-K3 on the main path's own
-   inputs (8x720x1280x128) against their plain versions, bitwise, and
-   timed; then the staged chain on the same rectified frames: a counted
+   counts (K1 and the batch route's agg_down, agg_horiz, agg_up_wta and
+   agg_lr once each, nothing else), frames/s and peak memory; then K1-K3
+   on the main path's own inputs (8x720x1280x128) against their plain
+   versions, bitwise, and timed; the batch route's kernels on the same
+   volume against their plain stages, bitwise, and timed beside their
+   bounds; the two matcher routes (K2 x8 + K3, and the batch sweeps) in
+   turns at batch 8 and batch 1 with their peak memory; a counted run of
+   sgbm_cuda(fused_wta=False), which must launch K1, K2 x8 and K3 alone
+   and give the path's map; then the staged chain on the same rectified frames: a counted
    run of sgbm_staged_cuda, which must launch the fused cost + down kernel
    once, K2 on an int16 S five times and the three-input WTA/LR once, and
    none of K1-K3; its map equal to sgbm_cuda's and to the slice-1 path's;
@@ -42,7 +48,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    the WLS accuracy bar (valid > 0.95, MAE < 0.7 px outside the left 128
    columns), with launch counts proving K1-K7 ran, frames/s and peak
    memory; then K1-K7 on that path's own inputs (K1-K3 on the 16 stacked
-   frames, 16x720x1280x128) against their plain versions, bitwise, and
+   frames, 16x720x1280x128, where the two matcher routes are also timed in
+   turns) against their plain versions, bitwise, and
    K4-K7 timed (K5 beside scatter_add_, its histogram alone; K7 in turns
    with torch.gather, the gather alone), and
    K4's and K5's three launches each timed apart (CUDA events between
@@ -66,23 +73,28 @@ Phases, each of which raises (and exits non-zero) on failure:
    reads in a converged sweep, bounds, and the sizes kernel's split: the
    real keys and source indices, no source indices, distinct keys;
 8. shared path: the full path's configuration with pair_mode="shared"
-   (K1's pair mode builds both matchers' volumes in one launch, K3's
-   mirror mode runs the right matcher's WTA/LR), at the WLS bar, with
-   launch counts proving both modes ran; every output equal to the stacked
-   path's; ms per batch at batch 8 and ms per process_pair at batch 1 for
-   both pair modes, timed in turns; then K1's pair mode, K2 and K3's mirror
-   mode on the path's own inputs (8x720x1280x128, both volumes) against
-   their plain versions frame by frame, bitwise, the two modes timed, and
-   sgbm_pair_cuda's two maps equal to the stacked matcher's; then a
-   profile of the shared path;
+   (K1's pair mode builds both matchers' volumes in one launch, the batch
+   route's mirror mode runs the right matcher's WTA/LR), at the WLS bar,
+   with launch counts proving both modes ran; every output equal to the
+   stacked path's; ms per batch at batch 8 and ms per process_pair at
+   batch 1 for both pair modes, timed in turns; then K1's pair mode, K2
+   and K3's mirror mode on the path's own inputs (8x720x1280x128, both
+   volumes) against their plain versions frame by frame, bitwise, the two
+   modes timed; the batch route's kernels in mirror mode against their
+   plain stages and K3's mirror mode, and the two matcher routes in turns
+   on the pair volume; sgbm_pair_cuda's two maps equal to the stacked
+   matcher's, and a counted run of sgbm_pair_cuda(fused_wta=False) (K1's
+   pair mode, K2 x8, K3's mirror mode, K4, K5); then a profile of the
+   shared path;
 9. configurations: K1 and its pair mode at blocks 1, 3, 7, 9 and 11 on a
    720x1280x128 frame against their plain versions, bitwise, and timed;
    StereoPipeline at
    the reference's defaults (downscale 2, 80 disparities, speckle 200/2,
    right matcher, WLS) on BGR frames with remap_precision="f32", and with
    lr_mode="none" and no WLS, each equal to the plain chain on its own
-   rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3
-   and K1's pair mode against their plain versions (the pair mode timed),
+   rectified frames; the stress shape 2560x1440x256 on one frame: K1-K3,
+   the batch route's kernels and K1's pair mode against their plain
+   versions (the pair mode timed), the two matcher routes in turns,
    the fused and staged matcher equal, and K4/K5 on the matcher's map
    against their plain versions, bitwise, and timed;
 10. sharded (stereo_depth_ruler_tpu_torch/parallel): a world of one NCCL
@@ -109,8 +121,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    pipeline's fill is a small part of the timed run), and a BGR copy with
    channels
    that differ; the CLI's run on each (batch 8, 128 disparities, the
-   full path's settings), which must launch per batch K1, K2 x8, K3, K4,
-   K5, K7 and K6 x6 and nothing else, its per-frame metrics bitwise
+   full path's settings), which must launch per batch K1, the batch
+   route's four kernels, K4, K5, K7 and K6 x6 and nothing else, its per-frame metrics bitwise
    equal to StereoPipeline.process_batch on the same VideoSource frames,
    its video_end_to_end_fps printed beside that loop's frames/s and the
    upload's ms per batch; the CLI's cloud of frame 3: the disparity of
@@ -128,8 +140,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    bench_full_pipeline, its disparity and xyz bitwise equal to
    StereoPipeline.process_batch on the uint8 frames; bench_sweep
    (2560x1440x256) bitwise equal to the plain matcher; the launches of
-   every call exact (the matcher: K1, K2 x8, K3, K4, K5; the full path:
-   those, K7 and K6 x6); each timed run's CUDA-event span within 5 % of
+   every call exact (the matcher: K1, the batch route's four kernels, K4,
+   K5; the full path: those, K7 and K6 x6); each timed run's CUDA-event span within 5 % of
    its host-clock span; entry()'s forward bitwise equal to the plain
    matcher and entry_full_pipeline()'s launching the full path once;
    then the card and the bench's JSON line.
@@ -213,15 +225,34 @@ KERNELS = {
                     "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
     "tile_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
                 "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
+    # the matcher's batch route (aggregate_wta at its defaults): the same
+    # kernels over a batch of frames, the JAX main path's
+    # _fused_aggregate_wta (rows 2 and 3)
+    "agg_down": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                 "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
+    "agg_horiz": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
+    "agg_up_wta": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                   "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
+    "agg_up_wta_mirror": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+                          "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
+    "agg_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
+               "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
 }
 # tile_sgm.cu's kernels, launched once each per K9 call (tile_lr with the
 # LR check), by the sharded path only
 TILE_SGM = ("tile_down", "tile_horiz", "tile_up_wta", "tile_lr")
+# the batch route's kernels, launched once each per matcher call (agg_lr
+# with the LR check) on every path at its defaults
+AGG = ("agg_down", "agg_horiz", "agg_up_wta", "agg_lr")
 # the pair modes, launched only by the shared path
-PAIR_MODES = ("cost_box_pair", "wta_lr_mirror")
+PAIR_MODES = ("cost_box_pair", "agg_up_wta_mirror")
+# K2 and K3, launched where agg_route picks "passes": counted in a run of
+# sgbm_cuda(fused_wta=False) (wta_lr_mirror: sgbm_pair_cuda's)
+PASSES = {"sgm_pass": 8, "wta_lr": 1}
 # the kernels the full path launches, and no other
-FULL_PATH = {"cost_box", "sgm_pass", "wta_lr", "speckle_labels",
-             "speckle_keep", "fgs_pass", "shift_gather"}
+FULL_PATH = {"cost_box", *AGG, "speckle_labels", "speckle_keep", "fgs_pass",
+             "shift_gather"}
 # the sort family's kernels, launched by its entry points only
 SORT_FAMILY = ("sweep_labels", "sweep_propagate", "radix_sort_keys",
                "radix_sort_pairs", "sorted_runs_sizes", "sorted_runs_keep",
@@ -246,11 +277,11 @@ STRESS = (1440, 2560, 256)
 # speckle filter per call (the cloud's, the bench flagship's, entry()'s)
 HOST = (128, 720, 1280, 128)
 HOST_BATCH = 8
-FULL_PATH_PER_BATCH = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
+FULL_PATH_PER_BATCH = {"cost_box": 1, **dict.fromkeys(AGG, 1),
                        "speckle_labels": 1, "speckle_keep": 1,
                        "shift_gather": 1, "fgs_pass": 6}
-MATCHER_PER_CALL = {"cost_box": 1, "sgm_pass": 8, "wta_lr": 1,
-                 "speckle_labels": 1, "speckle_keep": 1}
+MATCHER_PER_CALL = {"cost_box": 1, **dict.fromkeys(AGG, 1),
+                    "speckle_labels": 1, "speckle_keep": 1}
 
 
 def log(*a):
@@ -349,6 +380,11 @@ def phase_build():
         r"entry function '\w*?\d+(sgm_pass_kernel|sgm_pass_i16_kernel|"
         r"wta_lr_kernel|wta_lr3_kernel)ILi4E(?:Lb([01])E)?"
         r"\w*'[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers", ptxas)
+    # tile_sgm.cu: the sweeps by <words a lane, up>, the horizontal walk by
+    # disparities a lane / 4, the LR pass (K9's and the batch route's)
+    log("ptxas: tile_sgm " + ", ".join(ptxas_named(
+        ptxas, r"(tile_sweep_kernel|tile_horiz_kernel|tile_lr_kernel)"
+        r"(?:I(Li\d+E(?:Lb[01]E)?))?")))
     log("ptxas: at 4 disparities per lane: " + ", ".join(
         f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
         for name, acc, n in d128))
@@ -445,6 +481,145 @@ def check_kernels(lt, rt, params, errs):
         raise AssertionError(f"a kernel differs from its plain version: "
                              f"{err}")
     return C, S
+
+
+def check_agg(card, C, params, errs, mirror_from, tag):
+    """The batch route's kernels (csrc/tile_sgm.cu over a batch) on the
+    (B, H, W, D) cost volume C, frames from ``mirror_from`` on mirrored:
+    agg_down, agg_horiz, the up sweep with the WTA and the LR pass, each
+    held against its plain stage (ops/sgbm.py) frame by frame, bitwise,
+    then timed beside its plain version (run frame by frame over the
+    batch, which keeps its float32 volumes to one frame's) and its bound.
+    Keeps the largest error per kernel in errs; raises on any difference;
+    returns (times, bounds)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    B, H, W, D = C.shape
+    m = mirror_from
+    up = "agg_up_wta" if m == B else "agg_up_wta_mirror"
+    bias = sc.tile_bias(params)
+
+    def per_frame(fn):
+        def run():
+            for b in range(B):
+                fn(b)
+        return run
+
+    def plain_down(b):
+        return plain.tile_down_sum(C[b:b + 1], params, 0, bias)
+
+    def plain_horiz(b):
+        return plain.tile_horizontal(C[b:b + 1], S[b:b + 1], params)
+
+    def plain_up(b, lr=False):
+        return plain.tile_up_wta(C[b:b + 1], S[b:b + 1], params, bias, lr,
+                                 mirror_lr=b >= m)
+
+    S = sc.agg_down(C, params, bias)
+    torch.cuda.synchronize()
+    S_down = S.clone()
+    sc.agg_horiz(C, S, params)
+    torch.cuda.synchronize()
+    out, d2p = sc._agg_up(C, S, params, bias, True, m)
+    torch.cuda.synchronize()
+    out_up = out.clone()
+    sc._agg_lr(out, d2p, params, m)
+    torch.cuda.synchronize()
+    err = dict.fromkeys(("agg_down", "agg_horiz", up, "agg_lr"), 0.0)
+    for b in range(B):
+        S_p = plain_down(b)
+        err["agg_down"] = max(err["agg_down"],
+                              max_abs_err(S_down[b:b + 1], S_p))
+        S_p = plain.tile_horizontal(C[b:b + 1], S_p, params)
+        err["agg_horiz"] = max(err["agg_horiz"], max_abs_err(S[b:b + 1],
+                                                             S_p))
+        del S_p
+        err[up] = max(err[up], max_abs_err(out_up[b:b + 1], plain_up(b)))
+        err["agg_lr"] = max(err["agg_lr"], max_abs_err(out[b:b + 1],
+                                                       plain_up(b, True)))
+    del S_down, out_up
+    log(f"{tag} batch route {B}x{H}x{W}x{D}, mirrored from {m}: max|err| "
+        "vs plain: " + ", ".join(f"{k} {v}" for k, v in err.items()))
+    for k, v in err.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    if any(err.values()):
+        raise AssertionError(f"a batch-route kernel differs from its plain "
+                             f"stage: {err}")
+    S_t = S.clone()
+    times = {
+        "agg_down": (cuda_ms(lambda: sc.agg_down(C, params, bias), 5),
+                     cuda_ms(per_frame(plain_down), 1), None),
+        "agg_horiz": (cuda_ms(lambda: sc.agg_horiz(C, S_t, params), 5),
+                      cuda_ms(per_frame(plain_horiz), 1), None),
+        up: (cuda_ms(lambda: sc._agg_up(C, S, params, bias, True, m), 5),
+             cuda_ms(per_frame(plain_up), 1), None),
+    }
+    del S_t
+    if m == B:
+        # the LR pass's plain version: lr_check on each frame's 8-path sum
+        # and its WTA
+        wtas = []
+        for b in range(B):
+            S_f = plain.tile_up_sum(C[b:b + 1], S[b:b + 1], params, bias)
+            wtas.append((S_f, *plain.wta(S_f, params)))
+        times["agg_lr"] = (
+            cuda_ms(lambda: sc._agg_lr(out, d2p, params, m), 10),
+            cuda_ms(lambda: [plain.lr_check(*w, params) for w in wtas], 1),
+            None)
+        del wtas
+    del S, out, d2p
+    torch.cuda.empty_cache()
+    el, px = B * H * W * D, B * H * W
+    # bytes: each input read once, each output written once; operations
+    # ~8 per element and path, ~4 per element for the WTA, ~4 per pixel
+    # for the LR check
+    bounds = {"agg_down": bound(4 * el, 8 * 3 * el),
+              "agg_horiz": bound(6 * el, 8 * 2 * el),
+              up: bound(4 * el + 8 * px, (8 * 3 + 4) * el),
+              "agg_lr": bound(12 * px, 4 * px)}
+    for name, (ms, plain_ms, _) in times.items():
+        log(f"{tag} [{card}]: {name} at {B}x{H}x{W}x{D}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bounds[name][0]:.4f} ms "
+            f"({bounds[name][1]}), {ms / bounds[name][0]:.2f}x its bound")
+    return times, bounds
+
+
+def route_turns(card, C, params, mirror_from, tag):
+    """sgbm_cuda.aggregate_wta on the (B, H, W, D) cost volume C by its two
+    routes, K2 per direction + K3 (fused_wta=False) and the batch sweeps,
+    their maps held equal, timed in turns (passes, sweeps, sweeps,
+    passes), and the peak device memory each adds to C; returns the ms of
+    (passes, sweeps)."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    B, H, W, D = C.shape
+    runs = [lambda: sc.aggregate_wta(C, params, mirror_from=mirror_from,
+                                     fused_wta=False),
+            lambda: sc.aggregate_wta(C, params, mirror_from=mirror_from)]
+    if sc.agg_route(params) != "sweeps":
+        raise AssertionError(f"{tag}: the defaults do not take the sweeps")
+    peak = []
+    for fn in runs:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        peak.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        if len(peak) == 1:
+            want = got
+        elif not torch.equal(got, want):
+            raise AssertionError(f"{tag}: the two routes' maps differ")
+    del got, want
+    turns = in_turns_ms(runs)
+    ms = [sum(t) / 2 for t in turns]
+    log(f"{tag} [{card}]: aggregation + WTA + LR at {B}x{H}x{W}x{D} in "
+        f"turns: K2 x8 + K3 {' / '.join(f'{x:.3f}' for x in turns[0])} ms, "
+        f"batch sweeps {' / '.join(f'{x:.3f}' for x in turns[1])} ms "
+        f"({ms[0] / ms[1]:.2f}x); peak memory above C: K2 + K3 "
+        f"{peak[0]:.3f} GiB, sweeps {peak[1]:.3f} GiB; maps equal")
+    return ms
 
 
 def check_staged_kernels(lt, rt, params, errs, tag=""):
@@ -840,8 +1015,11 @@ def phase_main_path(card, errs, frames):
     pipe = StereoPipeline(rig, cfg, rectify=True, device=DEVICE)
     out, launches, peak, batch_ms = drive(pipe, lefts, rights, [sc])
     log(f"main path launches: {launches}")
-    if min(launches[k] for k in ("cost_box", "sgm_pass", "wta_lr")) < 1:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    if ({k for k, v in launches.items() if v} != {"cost_box", *AGG}
+            or any(launches[k] != 1 for k in ("cost_box", *AGG))):
+        raise AssertionError(f"the main path did not launch K1 and the "
+                             f"batch sweeps once each, and nothing else: "
+                             f"{launches}")
     vfrac, mae = check_output(out, gts, D, "main path (bar valid >= 0.9, "
                               "MAE <= 0.5)")
     if not (vfrac >= 0.9 and mae <= 0.5):
@@ -890,10 +1068,37 @@ def phase_main_path(card, errs, frames):
         log(f"main path [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bounds[name][0]:.3f} ms ({bounds[name][1]}) per launch")
-    del C, S, C_p, S_p
+    del S, C_p, S_p
     torch.cuda.empty_cache()
-    return times, bounds, (out["left_rectified"], out["right_rectified"],
-                           out["disparity"], params)
+
+    # the batch route's kernels on the same volume, against their plain
+    # stages, and the two routes in turns at batch 8 and at batch 1
+    agg_times, agg_bounds = check_agg(card, C, params, errs, B, "main path")
+    times.update(agg_times)
+    bounds.update(agg_bounds)
+    route_turns(card, C, params, B, f"main path batch {B}")
+    route_turns(card, C[:1].contiguous(), params, 1, "main path batch 1")
+    del C
+    torch.cuda.empty_cache()
+
+    # K2 and K3's own counted run: the matcher with fused_wta=False on the
+    # path's rectified frames launches K1, K2 x8 and K3 and nothing else,
+    # and gives the path's map
+    lrect, rrect = out["left_rectified"], out["right_rectified"]
+    sc.reset_launch_counts()
+    dpass = sc.sgbm_cuda(lrect, rrect, params, fused_wta=False)
+    torch.cuda.synchronize()
+    passes = dict(sc.LAUNCHES)
+    log(f"K2 + K3 route (fused_wta=False) launches: {passes}")
+    if ({k: v for k, v in passes.items() if v}
+            != {"cost_box": 1, **PASSES}):
+        raise AssertionError(f"sgbm_cuda(fused_wta=False) did not launch "
+                             f"K1, K2 x8 and K3 alone: {passes}")
+    if not torch.equal(dpass, out["disparity"]):
+        raise AssertionError("the K2 + K3 route's map differs from the "
+                             "path's")
+    del dpass
+    return times, bounds, (lrect, rrect, out["disparity"], params), passes
 
 
 def phase_staged_chain(card, errs, rect):
@@ -1091,9 +1296,13 @@ def phase_full_path(card, errs, frames):
     lt = plain.sobel_clip(torch.cat([lrect, rrect.flip(-1)]), cap)
     rt = plain.sobel_clip(torch.cat([rrect, lrect.flip(-1)]), cap)
     C, S = check_kernels(lt, rt, params, errs)
-    del C, lt, rt
+    del lt, rt
     dm = sc.wta_lr(S, params)
     del S
+    torch.cuda.empty_cache()
+    # the two matcher routes in turns on the stacked frames
+    route_turns(card, C, params, 2 * B, f"full path, {2 * B} stacked frames")
+    del C
     torch.cuda.empty_cache()
     r, ws = params.speckle_range, params.speckle_window_size
     labels, kept = check_speckle(dm, r, ws, errs, "full path")
@@ -1392,7 +1601,7 @@ def phase_shared_path(card, errs, frames, stacked):
     out, launches, peak, _ = drive(pipe, lefts, rights, [sc, wc])
     log(f"shared path launches: {launches}")
     if ({k for k, v in launches.items() if v}
-            != FULL_PATH - {"cost_box", "wta_lr"} | set(PAIR_MODES)):
+            != FULL_PATH - {"cost_box", "agg_up_wta"} | set(PAIR_MODES)):
         raise AssertionError(f"the shared path's kernels did not run as "
                              f"expected: {launches}")
     vfrac, mae = check_output(out, gts, D, "shared path (bar valid > 0.95, "
@@ -1469,7 +1678,20 @@ def phase_shared_path(card, errs, frames, stacked):
         cuda_ms(lambda: (plain.wta_lr(S_f[:B], params),
                          plain.wta_lr(S_f[B:], params, mirror_lr=True)), 1),
         None)}
-    del S, S_f, disp
+    del S, S_f
+    torch.cuda.empty_cache()
+    # the batch route in mirror mode on the same volume: its kernels against
+    # their plain stages, its map equal to K3's mirror mode, and the two
+    # routes in turns
+    agg_times, agg_bounds = check_agg(card, C, params, errs, B,
+                                      "shared path")
+    if not torch.equal(sc.aggregate_wta(C, params, mirror_from=B),
+                       disp[True]):
+        raise AssertionError("the batch route's mirror mode differs from "
+                             "K3's")
+    del disp
+    times["agg_up_wta_mirror"] = agg_times["agg_up_wta_mirror"]
+    route_turns(card, C, params, B, f"shared path, {2 * B} pair frames")
     torch.cuda.empty_cache()
     times["cost_box_pair"] = (
         cuda_ms(lambda: sc.cost_volume_pair(lt, rt, params), 3),
@@ -1481,7 +1703,8 @@ def phase_shared_path(card, errs, frames, stacked):
     # C_L element as K1 (C_R is the same sums, stored again). K3 mirror: K3's
     # bytes and operations on the 2B frames
     bounds = {"cost_box_pair": bound(2 * 4 * px + 2 * 2 * el, 14 * el),
-              "wta_lr_mirror": bound(2 * (4 * el + 4 * px), 2 * 4 * el)}
+              "wta_lr_mirror": bound(2 * (4 * el + 4 * px), 2 * 4 * el),
+              "agg_up_wta_mirror": agg_bounds["agg_up_wta_mirror"]}
     for name, (ms, plain_ms, _) in times.items():
         log(f"shared path [{card}]: {name} at {B}x{H}x{W}x{D}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1496,6 +1719,22 @@ def phase_shared_path(card, errs, frames, stacked):
         raise AssertionError("sgbm_pair_cuda differs from the stacked pair")
     log(f"shared path: sgbm_pair_cuda's (disp_l, disp_r) equal to the "
         f"stacked matcher's on {B} frames")
+    # K2 and K3's mirror mode in their own counted run: the shared pair
+    # with fused_wta=False, equal to the batch route's maps
+    sc.reset_launch_counts()
+    pl, pr = sc.sgbm_pair_cuda(lrect, rrect, params, fused_wta=False)
+    torch.cuda.synchronize()
+    passes = dict(sc.LAUNCHES)
+    log(f"shared pair, K2 + K3 route (fused_wta=False) launches: {passes}")
+    if ({k: v for k, v in passes.items() if v}
+            != {"cost_box_pair": 1, "sgm_pass": 8, "wta_lr_mirror": 1,
+                "speckle_labels": 1, "speckle_keep": 1}):
+        raise AssertionError(f"sgbm_pair_cuda(fused_wta=False) did not "
+                             f"launch K1's pair mode, K2 x8, K3's mirror "
+                             f"mode, K4 and K5 alone: {passes}")
+    if not (torch.equal(pl, dl) and torch.equal(pr, dr)):
+        raise AssertionError("the shared pair's two routes differ")
+    launches["wta_lr_mirror"] = passes["wta_lr_mirror"]
     return launches, times, bounds, pipe
 
 
@@ -1529,8 +1768,9 @@ def phase_configs(card, errs, frames):
     80 disparities, speckle 200/2, right matcher, WLS) on BGR frames with
     remap_precision="f32", and with lr_mode="none" and no WLS, each output
     against the plain chain on the pipeline's rectified frames; then the
-    stress shape 2560x1440x256 on one frame: K1-K3 and K1's pair mode
-    (timed) against plain, the fused and the staged matcher (speckle
+    stress shape 2560x1440x256 on one frame: K1-K3, the batch route's
+    kernels and K1's pair mode (timed) against plain, the two matcher
+    routes in turns, the fused and the staged matcher (speckle
     200/2) agreeing, and K4/K5 on the matcher's map before the filter
     against plain (timed)."""
     import torch
@@ -1597,8 +1837,9 @@ def phase_configs(card, errs, frames):
             f"{W}x{H} -> {tuple(out['disparity'].shape)}, equal to the plain "
             f"chain: {ok}, valid {float((want >= 0).float().mean()):.4f}, "
             f"{batch_ms:.2f} ms per batch; kernels {ran}")
-        expect = FULL_PATH if cfg.use_wls else FULL_PATH - {"fgs_pass",
-                                                             "shift_gather"}
+        # without the LR check the batch route has no LR pass
+        expect = FULL_PATH if cfg.use_wls else FULL_PATH - {
+            "fgs_pass", "shift_gather", "agg_lr"}
         if not ok or set(ran) != expect:
             raise AssertionError(f"the pipeline ({tag}) differs from its "
                                  f"plain chain, or ran {ran}")
@@ -1612,7 +1853,11 @@ def phase_configs(card, errs, frames):
     lt = plain.sobel_clip(torch.tensor(left, device=DEVICE), 63)
     rt = plain.sobel_clip(torch.tensor(right, device=DEVICE), 63)
     C, S = check_kernels(lt, rt, params, errs)
-    del C, S
+    del S
+    torch.cuda.empty_cache()
+    check_agg(card, C, params, errs, 1, "stress")
+    route_turns(card, C, params, 1, "stress")
+    del C
     torch.cuda.empty_cache()
     check_pair(card, lt, rt, params, errs)
     torch.cuda.empty_cache()
@@ -2413,7 +2658,7 @@ def main():
     phase_kernels(errs)
     phase_matcher()
     frames = render_frames(*MAIN[:3])
-    times1, bounds1, rect = phase_main_path(card, errs, frames)
+    times1, bounds1, rect, passes = phase_main_path(card, errs, frames)
     launches5, times5, bounds5 = phase_staged_chain(card, errs, rect)
     del rect
     launches, times2, bounds2, stacked, maps = phase_full_path(card, errs,
@@ -2439,7 +2684,9 @@ def main():
     phase_bench(card)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
-    launches.update({k: launches3[k] for k in PAIR_MODES})
+    launches.update({k: passes[k] for k in PASSES})
+    launches.update({k: launches3[k] for k in (*PAIR_MODES,
+                                               "wta_lr_mirror")})
     launches.update({k: launches4[k] for k in SORT_FAMILY})
     launches.update({k: launches5[k] for k in (*STAGED_CHAIN, *TRANSPOSES)})
     launches.update({k: launches6[k] for k in ("sgbm_tile", *TILE_SGM)})

@@ -34,7 +34,10 @@
 // The sweeps (1, 3). One frame gives a row of ~1280 columns, too few for
 // a row-parallel design to fill the card, so a block owns a strip of sw =
 // ceil(W / multiprocessors) columns (one strip a multiprocessor, 10 at
-// 1280 columns) and walks its rows, one block barrier a row. A path warp
+// 1280 columns) and walks its rows, one block barrier a row. Every strip
+// of a frame is resident at once, so a frame is at most SWMAX columns a
+// multiprocessor wide (4224 on the H100's 132); ops/sgbm_cuda.py sends a
+// wider one to K2 + K3 before any launch (sweep_max_width). A path warp
 // holds a column's D disparities in words of two (16-bit halves, 2 * NWD
 // a lane): its three paths' steps are min.u16x2 / add / subtract on both
 // halves without carries, minL one __reduce_min_sync, d +- 1 a shuffle
@@ -53,7 +56,9 @@
 // only the strip's own row before) and reads the neighbour's last, all
 // its words loaded together at the start, so the L2 round trip overlaps
 // the column's work. The launch is cooperative only so that every strip
-// is resident.
+// is resident. Where the strips are wider than 10 columns or more than
+// one frame is swept at once, the path warps run the WTA themselves (the
+// launch plan, columns_a_warp and inline_wta below).
 //
 // The horizontal sweep (2). Two warps per body row, one walking x up and
 // one down, each from its end of the row to the middle; a block barrier;
@@ -72,6 +77,31 @@
 // All values are exact small integers (the caller keeps S_dh within int16
 // by the bias it chooses), the WTA's float operations are K3's, so the
 // result equals ops/sgbm.py:sgbm_tile bit for bit.
+//
+// The matcher's batch route (sdr_agg_*, ops/sgbm_cuda.py:aggregate_wta)
+// runs the same kernels over a whole (B, H, W, D) batch of frames, as the
+// JAX package's main path runs _fused_aggregate_wta
+// (stereo_depth_ruler_tpu/ops/sgbm_pallas.py: directional_pass_pallas
+// _dir_pass_kernel for hf, hb and down with out_offset = -bias, then
+// up_wta_pallas / _up_wta_kernel + _wta_body): a frame is a slab with no
+// halo. A strip never crosses a frame. The sweeps' grid is (strips, G)
+// with G frame slots: the block (s, g) walks strip s of frames g, g + G,
+// ... one after the other, with each frame's edge exchange in a scratch
+// region of its own, so neighbouring strips meet only inside a frame and
+// every block they wait on is resident. G is as many frames as the card
+// holds at once (the launch's occupancy times the multiprocessors over
+// the strips, at most B): per column the up sweep keeps ~4.3 KB of shared
+// memory at D = 128 (staged C and S_dh rows, L rows, int32 sums), so not
+// all of a batch's B * W columns fit at once, and the frames go in waves.
+// A multiprocessor then runs G strips side by side, G times the columns of
+// one frame a launch, which hides the row chain's latency that bounds the
+// one-frame sweeps. The horizontal sweep walks R = B * H rows. A frame
+// from mirror_from on is a right matcher's volume in un-mirrored
+// orientation (the shared pair): its WTA and LR flip the no-partner test,
+// the scatter target x + d* + md and the check column x + round(disp), as
+// wta_lr.cu's mirror mode and _fused_aggregate_wta_pair's do. What bounds
+// the route: the bytes above, 20 B per element (C read 4 times, S_dh
+// written 3 times and read 3 times), and the sweeps' issue.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -296,8 +326,8 @@ template <int VPL>
 __device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
                                           int D, int d0, int lane, int md,
                                           int uniq, int quant16, int lr,
-                                          int pk_bits, float* out,
-                                          int* d2p) {
+                                          int pk_bits, bool mirror,
+                                          float* out, int* d2p) {
   const int PK = 1 << pk_bits;
   int tot[VPL];
   int key = 0x7fffffff;
@@ -333,7 +363,8 @@ __device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
   }
   float disp = __fadd_rn(__fadd_rn((float)dstar, off), (float)md);
   if (quant16) disp = __fdiv_rn(rintf(__fmul_rn(disp, 16.0f)), 16.0f);
-  const int xr = x - dstar - md;   // the partner column
+  // the partner column (mirror: a right matcher's, at x + d)
+  const int xr = mirror ? x + dstar + md : x - dstar - md;
   if (xr < 0 || xr > W - 1) valid = 0;
   if (lane == 0) {
     out[(size_t)y * W + x] = valid ? disp : -1.0f;
@@ -343,41 +374,46 @@ __device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
 
 // Shared memory of a sweep block of sw columns: the staged C rows, the up
 // sweep's staged S_dh rows, the vertical L row, the diagonals' L rows (two
-// parities each) and the up sweep's path sums (int32, two parities).
-size_t sweep_smem(int D, bool up, int sw) {
+// parities each) and, for WTA warps (sums), the path sums (int32, two
+// parities).
+size_t sweep_smem(int D, bool up, int sw, bool sums) {
   return (size_t)D * sizeof(int16_t) * sw * (NBUF * (up ? 2 : 1) + 1 + 4) +
-         (up ? (size_t)D * sizeof(int) * sw * 2 : 0);
+         (sums ? (size_t)D * sizeof(int) * sw * 2 : 0);
 }
 
-// One sweep over n rows of a strip of sw columns per block (grid: strips,
-// one a multiprocessor). Down: rows 0 .. n-1 of C (n = M), writing S_dh =
-// L - bias to rows y - top >= 0 of S. Up: rows n-1 .. 0 of the body C and
-// S_dh (n = R), the WTA of rows y < local into out and (lr) the winner
-// scatter into d2p.
+// One sweep over n rows of a strip of sw columns per block, in each of nfr
+// frames (grid: strips, frame slots; the block (s, g) takes frames g, g +
+// gridDim.y, ...). Down: rows 0 .. n-1 of C (n = M), writing S_dh = L -
+// bias to rows y - top >= 0 of S. Up: rows n-1 .. 0 of the body C and S_dh
+// (n = R), the WTA of rows y < local into out and (lr) the winner scatter
+// into d2p. A frame's C has n rows, its S n - top (down) or n (up), its out
+// and d2p local rows; frames from mirror_from on are in mirror mode.
 //
-// A path warp takes a column's three paths (dir 0 from column x, 1 from
-// x - 1, 2 from x + 1) on words of two disparities, 2 * NWD a lane. The
-// up sweep's path warps write each row's sums S = S_dh + bias + L_up to
-// shared memory, and WTA warps of their own reduce them a step later, so
-// the WTA is off the path warps' chain.
+// NW path warps each take a column's three paths at a time (dir 0 from
+// column x, 1 from x - 1, 2 from x + 1) on words of two disparities, 2 *
+// NWD a lane. The up sweep's path warps write each row's sums S = S_dh +
+// bias + L_up to shared memory, and WTA warps of their own reduce them a
+// step later, so the WTA is off the path warps' chain; with INL (no WTA
+// warps) the path warps run the WTA on the sums in registers.
 //
 // Strips exchange their edge columns' diagonal paths: edge: zeroed,
-// (strips, 4 slots, 2 sides, D / 2) 64-bit words of a word and its step
-// tag (t + 1): side 0 the first column's dir-2 L, side 1 the last
+// (frames, strips, 4 slots, 2 sides, D / 2) 64-bit words of a word and its
+// step tag (t + 1): side 0 the first column's dir-2 L, side 1 the last
 // column's dir-1 L, step t's in slot t % 4. An edge column first computes
 // and publishes the path its neighbour reads (from the strip's own row
 // before), then its vertical path, and last the path that reads the
 // neighbour's edge (loaded at the task's start), so the exchange's round
 // trip overlaps the column's work. A strip that writes step q has seen its
 // neighbour's step q - 2, so the neighbour has read the strip's steps up
-// to q - 4: four slots never collide.
-template <int NWD, bool UP>
+// to q - 4: four slots never collide. Each frame has its own words, so a
+// tag never meets a word of another frame.
+template <int NWD, bool UP, bool INL>
 __global__ void __launch_bounds__(768) tile_sweep_kernel(
     const int16_t* __restrict__ C, int16_t* __restrict__ S,
     float* __restrict__ out, int* __restrict__ d2p, unsigned long long* edge,
-    int n, int W, int D, int top, int local, int bias, int P1, int P2,
-    int ndir, int strips, int sw, int md, int uniq, int quant16, int lr,
-    int pk_bits) {
+    int nfr, int n, int W, int D, int top, int local, int bias, int P1,
+    int P2, int ndir, int strips, int sw, int md, int uniq, int quant16,
+    int lr, int pk_bits, int mirror_from, int NW) {
   constexpr int VPL = 2 * NWD;                       // disparities a lane
   extern __shared__ __align__(16) unsigned char smem[];
   const int SD = sw * D;
@@ -392,7 +428,7 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
   const int tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   // the path warps, then (up) the WTA warps
-  const int NW = min(sw, 16), NWT = (nth >> 5) - NW;
+  const int NWT = (nth >> 5) - NW;
   const int d0 = lane * VPL;
   const bool act = d0 < D;
   const int ED = D / 2;                              // words of an edge
@@ -400,153 +436,195 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
   const int nchunk = ncol * D / 8;   // 16-byte chunks of the strip's row
   const unsigned p1 = (unsigned)P1 * 0x10001u;
 
-  auto stage = [&](int t) {
-    if (t < n) {
-      const int y = UP ? n - 1 - t : t;
-      const size_t g = (size_t)y * rowel + (size_t)x0 * D;
-      int16_t* cb = cbuf + (t % NBUF) * SD;
-      for (int i = tid; i < nchunk; i += nth) cp_async16(cb + 8 * i, C + g + 8 * i);
-      if (UP) {
-        int16_t* sb = sbuf + (t % NBUF) * SD;
-        for (int i = tid; i < nchunk; i += nth)
-          cp_async16(sb + 8 * i, S + g + 8 * i);
-      }
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int t = 0; t < NBUF - 1; ++t) stage(t);
-
-  for (int t = 0; t < n + (UP ? 1 : 0); ++t) {
-    cp_async_wait<NBUF - 2>();
+  for (int f = blockIdx.y; f < nfr; f += gridDim.y) {
+    const int16_t* Cf = C + (size_t)f * n * rowel;
+    int16_t* Sf = S + (size_t)f * (UP ? n : n - top) * rowel;
+    const size_t of = (size_t)f * local * W;   // the frame's out and d2p
+    unsigned long long* edgef = edge + (size_t)f * strips * 8 * ED;
+    const bool mirror = f >= mirror_from;
+    // the frame before is done with every buffer
     __syncthreads();
-    stage(t + NBUF - 1);
-    if (warp >= NW) {
-      // the WTA of the step before, from its path sums in sS
-      const int yw = n - t;
-      if (t > 0 && yw < local)
-        for (int xl = warp - NW; xl < ncol; xl += NWT)
-          wta_pixel<VPL>(sS + ((t - 1) & 1) * SD + xl * D + d0, x0 + xl, yw,
-                         W, D, d0, lane, md, uniq, quant16, lr, pk_bits, out,
-                         d2p);
-      continue;
-    }
-    if (t == n) break;
-    const int y = UP ? n - 1 - t : t;
-    const int16_t* cb = cbuf + (t % NBUF) * SD;
-    const int par = t & 1, slot = t % 4, pslot = (t + 3) % 4;
-    const unsigned tag_in = (unsigned)t, tag_out = (unsigned)t + 1;
-    const bool emit = UP ? y < local : y >= top;
-    for (int xl = warp; xl < ncol; xl += NW) {
-      const int x = x0 + xl;
-      unsigned cw[NWD], Lu[NWD], La[NWD], Lb[NWD];   // dirs 0, 1, 2
-      // an edge column's neighbour words, loaded first and checked where
-      // they are read
-      const unsigned long long* ep =
-          (xl == 0 ? edge + ((size_t)((s - 1) * 4 + pslot) * 2 + 1) * ED
-                   : edge + ((size_t)((s + 1) * 4 + pslot) * 2) * ED) +
-          lane * NWD;
-      unsigned long long ew[NWD];
-      if (act && ndir == 3 && t > 0 &&
-          ((xl == 0 && x > 0) || (xl == ncol - 1 && x < W - 1)))
-        load_edge<NWD>(ep, ew);
-      if (act) {
-        ldw<NWD>(cb + xl * D + d0, cw);
-      } else {
-#pragma unroll
-        for (int j = 0; j < NWD; ++j) cw[j] = 0;
-      }
-      // one path at (y, x)
-      auto path = [&](const int dir, unsigned* L) {
-        const bool start = t == 0 || (dir == 1 && x == 0) ||
-                           (dir == 2 && x == W - 1);
-        if (start) {
-#pragma unroll
-          for (int j = 0; j < NWD; ++j) L[j] = act ? cw[j] : BIG2;
-          return;
+
+    auto stage = [&](int t) {
+      if (t < n) {
+        const int y = UP ? n - 1 - t : t;
+        const size_t g = (size_t)y * rowel + (size_t)x0 * D;
+        int16_t* cb = cbuf + (t % NBUF) * SD;
+        for (int i = tid; i < nchunk; i += nth)
+          cp_async16(cb + 8 * i, Cf + g + 8 * i);
+        if (UP) {
+          int16_t* sb = sbuf + (t % NBUF) * SD;
+          for (int i = tid; i < nchunk; i += nth)
+            cp_async16(sb + 8 * i, Sf + g + 8 * i);
         }
-        unsigned pw[NWD];
-        if (!act) {
-#pragma unroll
-          for (int j = 0; j < NWD; ++j) pw[j] = BIG2;
-        } else if (dir == 0) {
-          ldw<NWD>(Lv + xl * D + d0, pw);
-        } else if ((dir == 1 && xl == 0) || (dir == 2 && xl == ncol - 1)) {
-          get_edge<NWD>(ep, ew, pw, tag_in);
-        } else {
-          ldw<NWD>((dir == 1 ? L1 + (par ^ 1) * SD + (xl - 1) * D
-                             : L2 + (par ^ 1) * SD + (xl + 1) * D) + d0,
-                   pw);
-        }
-        dp_step2<NWD>(pw, cw, p1, P2, lane, act, L);
-      };
-      // an edge column first runs the path its neighbour reads
-      unsigned long long* mine =
-          edge + ((size_t)(s * 4 + slot) * 2) * ED + lane * NWD;
-      if (ndir == 1) {
-        path(0, Lu);
-      } else if (xl == 0 && s > 0) {
-        path(2, Lb);
-        if (act) put_edge<NWD>(mine, Lb, tag_out);
-        path(0, Lu);
-        path(1, La);
-      } else if (xl == ncol - 1 && s + 1 < strips) {
-        path(1, La);
-        if (act) put_edge<NWD>(mine + ED, La, tag_out);
-        path(0, Lu);
-        path(2, Lb);
-      } else {
-        path(0, Lu);
-        path(1, La);
-        path(2, Lb);
       }
-      // the rest touches no other lane: lanes beyond D skip it
-      if (!act) continue;
-      stw<NWD>(Lv + xl * D + d0, Lu);
-      unsigned tw[NWD];   // the sum, below 2^16 in each half
+      cp_async_commit();
+    };
 #pragma unroll
-      for (int j = 0; j < NWD; ++j) tw[j] = Lu[j];
-      if (ndir == 3) {
-        stw<NWD>(L1 + par * SD + xl * D + d0, La);
-        stw<NWD>(L2 + par * SD + xl * D + d0, Lb);
-#pragma unroll
-        for (int j = 0; j < NWD; ++j) tw[j] += La[j] + Lb[j];
-      }
-      if (!emit) continue;
-      int tot[VPL];
-#pragma unroll
-      for (int j = 0; j < NWD; ++j) {
-        tot[2 * j] = (int)(tw[j] & 0xffffu);
-        tot[2 * j + 1] = (int)(tw[j] >> 16);
-      }
-      if (!UP) {
-#pragma unroll
-        for (int k = 0; k < VPL; ++k) tot[k] -= bias;
-        st16<VPL>(S + (size_t)(y - top) * rowel + (size_t)x * D, d0, D, tot);
+    for (int t = 0; t < NBUF - 1; ++t) stage(t);
+
+    for (int t = 0; t < n + (UP ? 1 : 0); ++t) {
+      cp_async_wait<NBUF - 2>();
+      __syncthreads();
+      stage(t + NBUF - 1);
+      if (warp >= NW) {
+        // the WTA of the step before, from its path sums in sS
+        const int yw = n - t;
+        if (t > 0 && yw < local)
+          for (int xl = warp - NW; xl < ncol; xl += NWT)
+            wta_pixel<VPL>(sS + ((t - 1) & 1) * SD + xl * D + d0, x0 + xl,
+                           yw, W, D, d0, lane, md, uniq, quant16, lr,
+                           pk_bits, mirror, out + of, d2p + of);
         continue;
       }
-      // S = S_dh + bias + L_up for the WTA warps
-      int sd[VPL];
-      ld16<VPL>(sbuf + (t % NBUF) * SD + xl * D, d0, D, 0, sd);
-      int* sr = sS + par * SD + xl * D + d0;
+      if (t == n) break;
+      const int y = UP ? n - 1 - t : t;
+      const int16_t* cb = cbuf + (t % NBUF) * SD;
+      const int par = t & 1, slot = t % 4, pslot = (t + 3) % 4;
+      const unsigned tag_in = (unsigned)t, tag_out = (unsigned)t + 1;
+      const bool emit = UP ? y < local : y >= top;
+      for (int xl = warp; xl < ncol; xl += NW) {
+        const int x = x0 + xl;
+        unsigned cw[NWD], Lu[NWD], La[NWD], Lb[NWD];   // dirs 0, 1, 2
+        // an edge column's neighbour words, loaded first and checked where
+        // they are read
+        const unsigned long long* ep =
+            (xl == 0 ? edgef + ((size_t)((s - 1) * 4 + pslot) * 2 + 1) * ED
+                     : edgef + ((size_t)((s + 1) * 4 + pslot) * 2) * ED) +
+            lane * NWD;
+        unsigned long long ew[NWD];
+        if (act && ndir == 3 && t > 0 &&
+            ((xl == 0 && x > 0) || (xl == ncol - 1 && x < W - 1)))
+          load_edge<NWD>(ep, ew);
+        if (act) {
+          ldw<NWD>(cb + xl * D + d0, cw);
+        } else {
 #pragma unroll
-      for (int k = 0; k < VPL; ++k) sr[k] = tot[k] + sd[k] + bias;
+          for (int j = 0; j < NWD; ++j) cw[j] = 0;
+        }
+        // one path at (y, x)
+        auto path = [&](const int dir, unsigned* L) {
+          const bool start = t == 0 || (dir == 1 && x == 0) ||
+                             (dir == 2 && x == W - 1);
+          if (start) {
+#pragma unroll
+            for (int j = 0; j < NWD; ++j) L[j] = act ? cw[j] : BIG2;
+            return;
+          }
+          unsigned pw[NWD];
+          if (!act) {
+#pragma unroll
+            for (int j = 0; j < NWD; ++j) pw[j] = BIG2;
+          } else if (dir == 0) {
+            ldw<NWD>(Lv + xl * D + d0, pw);
+          } else if ((dir == 1 && xl == 0) || (dir == 2 && xl == ncol - 1)) {
+            get_edge<NWD>(ep, ew, pw, tag_in);
+          } else {
+            ldw<NWD>((dir == 1 ? L1 + (par ^ 1) * SD + (xl - 1) * D
+                               : L2 + (par ^ 1) * SD + (xl + 1) * D) + d0,
+                     pw);
+          }
+          dp_step2<NWD>(pw, cw, p1, P2, lane, act, L);
+        };
+        // an edge column first runs the path its neighbour reads
+        unsigned long long* mine =
+            edgef + ((size_t)(s * 4 + slot) * 2) * ED + lane * NWD;
+        if (ndir == 1) {
+          path(0, Lu);
+        } else if (xl == 0 && s > 0) {
+          path(2, Lb);
+          if (act) put_edge<NWD>(mine, Lb, tag_out);
+          path(0, Lu);
+          path(1, La);
+        } else if (xl == ncol - 1 && s + 1 < strips) {
+          path(1, La);
+          if (act) put_edge<NWD>(mine + ED, La, tag_out);
+          path(0, Lu);
+          path(2, Lb);
+        } else {
+          path(0, Lu);
+          path(1, La);
+          path(2, Lb);
+        }
+        if constexpr (!INL) {
+          // the rest touches no other lane: lanes beyond D skip it
+          if (!act) continue;
+          stw<NWD>(Lv + xl * D + d0, Lu);
+          unsigned tw[NWD];   // the sum, below 2^16 in each half
+#pragma unroll
+          for (int j = 0; j < NWD; ++j) tw[j] = Lu[j];
+          if (ndir == 3) {
+            stw<NWD>(L1 + par * SD + xl * D + d0, La);
+            stw<NWD>(L2 + par * SD + xl * D + d0, Lb);
+#pragma unroll
+            for (int j = 0; j < NWD; ++j) tw[j] += La[j] + Lb[j];
+          }
+          if (!emit) continue;
+          int tot[VPL];
+#pragma unroll
+          for (int j = 0; j < NWD; ++j) {
+            tot[2 * j] = (int)(tw[j] & 0xffffu);
+            tot[2 * j + 1] = (int)(tw[j] >> 16);
+          }
+          if (!UP) {
+#pragma unroll
+            for (int k = 0; k < VPL; ++k) tot[k] -= bias;
+            st16<VPL>(Sf + (size_t)(y - top) * rowel + (size_t)x * D, d0, D,
+                      tot);
+            continue;
+          }
+          // S = S_dh + bias + L_up for the WTA warps
+          int sd[VPL];
+          ld16<VPL>(sbuf + (t % NBUF) * SD + xl * D, d0, D, 0, sd);
+          int* sr = sS + par * SD + xl * D + d0;
+#pragma unroll
+          for (int k = 0; k < VPL; ++k) sr[k] = tot[k] + sd[k] + bias;
+        } else {
+          // the up sweep's WTA here, on every lane: lanes beyond D skip
+          // only the stores
+          unsigned tw[NWD] = {};   // the sum, below 2^16 in each half
+          if (act) {
+            stw<NWD>(Lv + xl * D + d0, Lu);
+#pragma unroll
+            for (int j = 0; j < NWD; ++j) tw[j] = Lu[j];
+            if (ndir == 3) {
+              stw<NWD>(L1 + par * SD + xl * D + d0, La);
+              stw<NWD>(L2 + par * SD + xl * D + d0, Lb);
+#pragma unroll
+              for (int j = 0; j < NWD; ++j) tw[j] += La[j] + Lb[j];
+            }
+          }
+          if (!emit) continue;
+          int sv[VPL];   // S = S_dh + bias + L_up
+          ld16<VPL>(sbuf + (t % NBUF) * SD + xl * D, d0, D, 0, sv);
+#pragma unroll
+          for (int j = 0; j < NWD; ++j) {
+            sv[2 * j] += (int)(tw[j] & 0xffffu) + bias;
+            sv[2 * j + 1] += (int)(tw[j] >> 16) + bias;
+          }
+          wta_pixel<VPL>(sv, x, y, W, D, d0, lane, md, uniq, quant16, lr,
+                         pk_bits, mirror, out + of, d2p + of);
+        }
+      }
     }
   }
 }
 
 // The LR check of the local rows, after the up sweep: a pixel whose
 // disparity is valid (>= 0: md >= 0) keeps it where the winner scattered to
-// x - rint(disp) agrees within disp12.
+// x - rint(disp) (x + rint(disp) in a mirrored frame) agrees within disp12.
+// out and d2p hold n / W rows; rows from mrow on (the first mirrored
+// frame's first row) are mirrored.
 __global__ void tile_lr_kernel(float* __restrict__ out,
                                const int* __restrict__ d2p, int n, int W,
-                               int disp12, int pk_bits) {
+                               int mrow, int disp12, int pk_bits) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float disp = out[i];
   if (disp < 0.0f) return;
   const int y = i / W, x = i - y * W;
-  const int xr = x - __float2int_rn(disp);
+  const int rd = __float2int_rn(disp);
+  const int xr = y >= mrow ? x + rd : x - rd;
   if (xr < 0 || xr >= W) return;
   const int p = d2p[(size_t)y * W + xr];
   const float d2 = p != NOWIN ? (float)(p & ((1 << pk_bits) - 1)) : -1.0f;
@@ -646,59 +724,106 @@ tile_horiz_kernel(const int16_t* __restrict__ C, int16_t* __restrict__ S,
   }
 }
 
-template <int NWD, bool UP>
-cudaError_t launch_sweep(const int16_t* C, int16_t* S, float* out, int* d2p,
-                         unsigned long long* edge, int n, int W, int D,
-                         int top, int local, int bias, int P1, int P2,
-                         int ndir, int md, int uniq, int quant16, int lr,
-                         int pk_bits, cudaStream_t stream) {
-  int dev = 0, sms = 0, coop = 0, max_smem = 0;
+// The sweeps' strips: sw = ceil(W / multiprocessors) columns, at least 2.
+cudaError_t strip_plan(int W, int* sms, int* sw, int* strips) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  *sw = max(2, (W + *sms - 1) / *sms);
+  if (*sw > SWMAX) return cudaErrorInvalidValue;
+  *strips = (W + *sw - 1) / *sw;
+  return cudaSuccess;
+}
+
+// The sweeps' launch plan, one for the batch route and K9's slabs, from
+// the frames at once and the strip width. Columns a path warp: two with 4
+// frames or more (the up sweep at D <= 128), else one. The up sweep's WTA:
+// on WTA warps of its own a row behind the path warps for one frame of
+// narrow strips, else on the path warps (no int32 sums in shared memory).
+// tools/agg_route_ab.py --plans times every choice at each side of these
+// thresholds on the card (PERF.md).
+int columns_a_warp(bool up, int nwd, int nfr) {
+  return nfr >= 4 && (!up || nwd <= 2) ? 2 : 1;
+}
+
+bool inline_wta(int nfr, int sw) { return !(nfr == 1 && sw <= 10); }
+
+template <int NWD, bool UP, bool INL>
+cudaError_t launch_sweep(const int16_t* C, int16_t* S, float* out, int* d2p,
+                         unsigned long long* edge, int nfr, int n, int W,
+                         int D, int top, int local, int bias, int P1, int P2,
+                         int ndir, int md, int uniq, int quant16, int lr,
+                         int pk_bits, int mirror_from, cudaStream_t stream) {
+  int dev = 0, sms = 0, coop = 0, max_smem = 0, sw = 0, strips = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (!coop) return cudaErrorNotSupported;
-  auto kern = tile_sweep_kernel<NWD, UP>;
+  e = strip_plan(W, &sms, &sw, &strips);
+  if (e != cudaSuccess) return e;
+  auto kern = tile_sweep_kernel<NWD, UP, INL>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            max_smem);
   if (e != cudaSuccess) return e;
-  // a strip a multiprocessor, at least 2 and at most SWMAX columns wide
-  int sw = max(2, (W + sms - 1) / sms);
-  if (sw > SWMAX) return cudaErrorInvalidValue;
-  int strips = (W + sw - 1) / sw;
-  // a path warp a column up to 16, a WTA warp a column (up to 10) or two
-  const int nw = min(sw, 16);
-  const int threads = 32 * (nw + (UP ? (nw <= 10 ? nw : (nw + 1) / 2) : 0));
-  const size_t smem = sweep_smem(D, UP, sw);
+  // path warps of columns_a_warp columns each (16 columns at once at
+  // most); the up sweep's WTA on warps of its own (a column each up to 10
+  // columns, else two) or, inline, on the path warps
+  const int nc = min(sw, 16), cw = columns_a_warp(UP, NWD, nfr);
+  int nw = (nc + cw - 1) / cw;   // not const: a kernel argument
+  const int nwt = INL || !UP ? 0 : nc <= 10 ? nc : (nc + 1) / 2;
+  const int threads = 32 * (nw + nwt);
+  const size_t smem = sweep_smem(D, UP, sw, nwt > 0);
   if (smem > (size_t)max_smem) return cudaErrorInvalidConfiguration;
+  // as many frames at once as stay resident beside each other
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  int slots = min(nfr, per_sm * sms / strips);
+  if (slots < 1) return cudaErrorCooperativeLaunchTooLarge;
+  // the frames in waves of equal size
+  const int waves = (nfr + slots - 1) / slots;
+  slots = (nfr + waves - 1) / waves;
   void* args[] = {(void*)&C, (void*)&S, (void*)&out, (void*)&d2p,
-                  (void*)&edge, &n, &W, &D, &top, &local, &bias, &P1, &P2,
-                  &ndir, &strips, &sw, &md, &uniq, &quant16, &lr, &pk_bits};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(strips), dim3(threads),
-                                  args, smem, stream);
+                  (void*)&edge, &nfr, &n, &W, &D, &top, &local, &bias, &P1,
+                  &P2, &ndir, &strips, &sw, &md, &uniq, &quant16, &lr,
+                  &pk_bits, &mirror_from, &nw};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(strips, slots),
+                                  dim3(threads), args, smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <bool UP>
 cudaError_t sweep_vpl(const int16_t* C, int16_t* S, float* out, int* d2p,
-                      unsigned long long* edge, int n, int W, int D, int top,
-                      int local, int bias, int P1, int P2, int ndir, int md,
-                      int uniq, int quant16, int lr, int pk_bits,
-                      cudaStream_t s) {
+                      unsigned long long* edge, int nfr, int n, int W, int D,
+                      int top, int local, int bias, int P1, int P2, int ndir,
+                      int md, int uniq, int quant16, int lr, int pk_bits,
+                      int mirror_from, cudaStream_t s) {
+  int sms = 0, sw = 0, strips = 0;
+  const cudaError_t e = strip_plan(W, &sms, &sw, &strips);
+  if (e != cudaSuccess) return e;
+  const bool inl = UP && inline_wta(nfr, sw);
   // words of two disparities a lane: D <= 64 in 1, <= 128 in 2, else 4
-  if (D <= 64)
-    return launch_sweep<1, UP>(C, S, out, d2p, edge, n, W, D, top, local,
-                               bias, P1, P2, ndir, md, uniq, quant16, lr,
-                               pk_bits, s);
-  if (D <= 128)
-    return launch_sweep<2, UP>(C, S, out, d2p, edge, n, W, D, top, local,
-                               bias, P1, P2, ndir, md, uniq, quant16, lr,
-                               pk_bits, s);
-  return launch_sweep<4, UP>(C, S, out, d2p, edge, n, W, D, top, local, bias,
-                             P1, P2, ndir, md, uniq, quant16, lr, pk_bits, s);
+#define SDR_SWEEP(NWD, INL)                                                  \
+  launch_sweep<NWD, UP, INL>(C, S, out, d2p, edge, nfr, n, W, D, top, local, \
+                             bias, P1, P2, ndir, md, uniq, quant16, lr,      \
+                             pk_bits, mirror_from, s)
+  if constexpr (UP) {
+    if (inl) {
+      if (D <= 64) return SDR_SWEEP(1, true);
+      if (D <= 128) return SDR_SWEEP(2, true);
+      return SDR_SWEEP(4, true);
+    }
+  }
+  if (D <= 64) return SDR_SWEEP(1, false);
+  if (D <= 128) return SDR_SWEEP(2, false);
+  return SDR_SWEEP(4, false);
+#undef SDR_SWEEP
 }
 
 bool bad_args(int W, int D, int P1, int P2, int ndir) {
@@ -706,19 +831,65 @@ bool bad_args(int W, int D, int P1, int P2, int ndir) {
          P2 < 0 || P2 > 32767 || (ndir != 1 && ndir != 3);
 }
 
-}  // namespace
-
-// int16 entries of zeroed scratch that one sweep (sdr_tile_down or
-// sdr_tile_up_wta) needs: the edge exchange.
-extern "C" long long sdr_tile_scratch_size(int W, int D) {
-  if (W < 1 || D < 1) return -1;
-  const long long strips = (W + 1) / 2;   // strips of 2 columns or more
-  return strips * 8 * (D / 2) * 4;
+int pack_bits(int D, int md) {   // PK = 1 << bit_length(D + md)
+  int b = 0;
+  while ((1 << b) <= D + md) ++b;
+  return b;
 }
+
+cudaError_t horiz(const int16_t* C, int16_t* S, int R, int W, int D, int P1,
+                  int P2, cudaStream_t s) {
+  const dim3 grid((R + HROWS - 1) / HROWS), block(HROWS * 64);
+  const int smem = HROWS * 2 * HST * 2 * HCHB;   // a ring per warp
+#define SDR_HORIZ(V)                                                         \
+  case V: {                                                                  \
+    const cudaError_t e = cudaFuncSetAttribute(                              \
+        tile_horiz_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+        smem);                                                               \
+    if (e != cudaSuccess) return e;                                          \
+    tile_horiz_kernel<V><<<grid, block, smem, s>>>(C, S, R, W, D, P1, P2);   \
+    break;                                                                   \
+  }
+  switch ((D + 31) / 32) {
+    SDR_HORIZ(1) SDR_HORIZ(2) SDR_HORIZ(3) SDR_HORIZ(4)
+    SDR_HORIZ(5) SDR_HORIZ(6) SDR_HORIZ(7) SDR_HORIZ(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SDR_HORIZ
+  return cudaGetLastError();
+}
+
+// The up sweep with the WTA over nfr frames of R body rows, the winner
+// scatter set to "no winner" first.
+cudaError_t up_wta(const int16_t* C, const int16_t* S, float* out, int* d2p,
+                   int16_t* scratch, int nfr, int R, int W, int D, int local,
+                   int bias, int P1, int P2, int ndir, int md, int uniq,
+                   int quant16, int lr, int mirror_from, cudaStream_t s) {
+  if (lr) {
+    const cudaError_t e = cudaMemsetAsync(
+        d2p, 0x7f, sizeof(int) * (size_t)nfr * local * W, s);
+    if (e != cudaSuccess) return e;
+  }
+  return sweep_vpl<true>(C, (int16_t*)S, out, d2p,
+                         (unsigned long long*)scratch, nfr, R, W, D, 0, local,
+                         bias, P1, P2, ndir, md, uniq, quant16, lr,
+                         pack_bits(D, md), mirror_from, s);
+}
+
+cudaError_t lr_pass(float* out, const int* d2p, int nfr, int local, int W,
+                    int D, int md, int disp12, int mirror_from,
+                    cudaStream_t s) {
+  const int n = nfr * local * W, threads = 256;
+  tile_lr_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
+      out, d2p, n, W, mirror_from * local, disp12, pack_bits(D, md));
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // C: (M, W, D) int16 slab; S: (M - top, W, D) int16 out, the down-going
 // paths' sum (ndir 3: vertical and both diagonals; 1: vertical) minus bias
-// on the body rows. scratch: sdr_tile_scratch_size(W, D) int16, zeroed.
+// on the body rows. scratch: sdr_agg_scratch_size(1, W, D) int16, zeroed.
 // The caller keeps every S_dh value within int16.
 extern "C" int sdr_tile_down(const int16_t* C, int16_t* S, int16_t* scratch,
                              int M, int W, int D, int top, int bias, int P1,
@@ -726,35 +897,17 @@ extern "C" int sdr_tile_down(const int16_t* C, int16_t* S, int16_t* scratch,
   if (bad_args(W, D, P1, P2, ndir) || top < 0 || M <= top)
     return (int)cudaErrorInvalidValue;
   return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
-                               (unsigned long long*)scratch, M, W, D, top, 0,
-                               bias, P1, P2, ndir, 0, 0, 0, 0, 1,
+                               (unsigned long long*)scratch, 1, M, W, D, top,
+                               0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, 1,
                                (cudaStream_t)stream);
 }
 
 // C, S: (R, W, D) int16 body rows of the slab and S_dh; both horizontal
-// paths added into S in place.
+// paths added into S in place. A (B, H, W, D) batch is R = B * H rows.
 extern "C" int sdr_tile_horiz(const int16_t* C, int16_t* S, int R, int W,
                               int D, int P1, int P2, void* stream) {
   if (bad_args(W, D, P1, P2, 1) || R < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((R + HROWS - 1) / HROWS), block(HROWS * 64);
-  const int smem = HROWS * 2 * HST * 2 * HCHB;   // a ring per warp
-  cudaStream_t s = (cudaStream_t)stream;
-#define SDR_HORIZ(V)                                                         \
-  case V: {                                                                  \
-    const cudaError_t e = cudaFuncSetAttribute(                              \
-        tile_horiz_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
-        smem);                                                               \
-    if (e != cudaSuccess) return (int)e;                                     \
-    tile_horiz_kernel<V><<<grid, block, smem, s>>>(C, S, R, W, D, P1, P2);   \
-    break;                                                                   \
-  }
-  switch ((D + 31) / 32) {
-    SDR_HORIZ(1) SDR_HORIZ(2) SDR_HORIZ(3) SDR_HORIZ(4)
-    SDR_HORIZ(5) SDR_HORIZ(6) SDR_HORIZ(7) SDR_HORIZ(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SDR_HORIZ
-  return (int)cudaGetLastError();
+  return (int)horiz(C, S, R, W, D, P1, P2, (cudaStream_t)stream);
 }
 
 // C, S: (R, W, D) int16 body rows and S_dh; out: (local, W) float32, the
@@ -769,18 +922,9 @@ extern "C" int sdr_tile_up_wta(const int16_t* C, const int16_t* S, float* out,
   if (bad_args(W, D, P1, P2, ndir) || R < 1 || local < 1 || local > R ||
       md < 0)
     return (int)cudaErrorInvalidValue;
-  int pk_bits = 0;
-  while ((1 << pk_bits) <= D + md) ++pk_bits;  // PK = 1 << bit_length(D+md)
-  cudaStream_t s = (cudaStream_t)stream;
-  if (lr) {
-    const cudaError_t e =
-        cudaMemsetAsync(d2p, 0x7f, sizeof(int) * (size_t)local * W, s);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)sweep_vpl<true>(C, (int16_t*)S, out, d2p,
-                              (unsigned long long*)scratch, R, W, D, 0, local,
-                              bias, P1, P2, ndir, md, uniq, quant16, lr,
-                              pk_bits, s);
+  return (int)up_wta(C, S, out, d2p, scratch, 1, R, W, D, local, bias, P1,
+                     P2, ndir, md, uniq, quant16, lr, 1,
+                     (cudaStream_t)stream);
 }
 
 // out, d2p: sdr_tile_up_wta's (local, W) outputs; the LR check in place.
@@ -788,10 +932,58 @@ extern "C" int sdr_tile_lr(float* out, const int* d2p, int local, int W,
                            int D, int md, int disp12, void* stream) {
   if (local < 1 || W < 1 || md < 0 || disp12 < 0)
     return (int)cudaErrorInvalidValue;
-  int pk_bits = 0;
-  while ((1 << pk_bits) <= D + md) ++pk_bits;
-  const int n = local * W, threads = 256;
-  tile_lr_kernel<<<(n + threads - 1) / threads, threads, 0,
-                   (cudaStream_t)stream>>>(out, d2p, n, W, disp12, pk_bits);
-  return (int)cudaGetLastError();
+  return (int)lr_pass(out, d2p, 1, local, W, D, md, disp12, 1,
+                      (cudaStream_t)stream);
+}
+
+// int16 entries of zeroed scratch that one sweep over B frames (B = 1: a
+// tile's slab) needs: a frame's edge exchange each; -1 for bad arguments or
+// where the device cannot be read.
+extern "C" long long sdr_agg_scratch_size(int B, int W, int D) {
+  int sms = 0, sw = 0, strips = 0;
+  if (B < 1 || W < 1 || D < 1 || strip_plan(W, &sms, &sw, &strips))
+    return -1;
+  return (long long)B * strips * 8 * (D / 2) * 4;
+}
+
+// C: (B, H, W, D) int16 cost volume; S: (B, H, W, D) int16 out, S_dh =
+// the down-going paths' sum minus bias. scratch: sdr_agg_scratch_size(B,
+// W, D) int16, zeroed. The caller keeps every S_dh value within int16.
+extern "C" int sdr_agg_down(const int16_t* C, int16_t* S, int16_t* scratch,
+                            int B, int H, int W, int D, int bias, int P1,
+                            int P2, int ndir, void* stream) {
+  if (bad_args(W, D, P1, P2, ndir) || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
+                               (unsigned long long*)scratch, B, H, W, D, 0,
+                               0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, B,
+                               (cudaStream_t)stream);
+}
+
+// C, S: (B, H, W, D) int16 cost volume and S_dh; out: (B, H, W) float32,
+// the disparity before the LR check (-1.0 where invalid); d2p: (B, H, W)
+// int32 winner scatter, written when lr. Frames b >= mirror_from in mirror
+// mode. scratch as sdr_agg_down's. md >= 0.
+extern "C" int sdr_agg_up_wta(const int16_t* C, const int16_t* S, float* out,
+                              int* d2p, int16_t* scratch, int B, int H,
+                              int W, int D, int bias, int P1, int P2,
+                              int ndir, int md, int uniq, int quant16,
+                              int lr, int mirror_from, void* stream) {
+  if (bad_args(W, D, P1, P2, ndir) || B < 1 || H < 1 || md < 0 ||
+      mirror_from < 0 || mirror_from > B)
+    return (int)cudaErrorInvalidValue;
+  return (int)up_wta(C, S, out, d2p, scratch, B, H, W, D, H, bias, P1, P2,
+                     ndir, md, uniq, quant16, lr, mirror_from,
+                     (cudaStream_t)stream);
+}
+
+// out, d2p: sdr_agg_up_wta's (B, H, W) outputs; the LR check in place.
+extern "C" int sdr_agg_lr(float* out, const int* d2p, int B, int H, int W,
+                          int D, int md, int disp12, int mirror_from,
+                          void* stream) {
+  if (B < 1 || H < 1 || W < 1 || md < 0 || disp12 < 0 || mirror_from < 0 ||
+      mirror_from > B)
+    return (int)cudaErrorInvalidValue;
+  return (int)lr_pass(out, d2p, B, H, W, D, md, disp12, mirror_from,
+                      (cudaStream_t)stream);
 }

@@ -30,7 +30,7 @@
 //
 // What bounds it on the H100: device-memory bytes, one read of the int32
 // volume (4 B per element) per frame; the row state lives in 12 B per
-// column of shared memory.
+// column of shared memory (past 4096 columns, 48 KB, the opt-in kind).
 //
 // The three-input entry (wta_lr3_kernel) replaces _wta_lr_kernel (launched
 // by wta_lr_pallas): it reads the staged chain's three int16 partial path
@@ -139,7 +139,12 @@ cudaError_t launch(const int32_t* S, float* out, int B, int H, int W, int D,
                    int md, int uniq, int quant16, int disp12, int apply_lr,
                    int mirror_from, int pk_bits, cudaStream_t stream) {
   const size_t smem = 3 * sizeof(int) * (size_t)W;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {   // past 4096 columns: the opt-in shared memory
+    const cudaError_t e = cudaFuncSetAttribute(
+        wta_lr_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
   wta_lr_kernel<VPL><<<B * H, THREADS, smem, stream>>>(
       S, out, H, W, D, md, uniq, quant16, disp12, apply_lr, mirror_from,
       pk_bits);
@@ -241,7 +246,12 @@ cudaError_t launch3(const int16_t* Sd, const int16_t* Su, const int16_t* Sh,
                     int quant16, int disp12, int apply_lr, int pk_bits,
                     cudaStream_t stream) {
   const size_t smem = 3 * sizeof(int) * (size_t)W;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wta_lr3_kernel<VPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
   wta_lr3_kernel<VPL><<<B * H, THREADS, smem, stream>>>(
       Sd, Su, Sh, out, W, D, md, uniq, quant16, disp12, apply_lr, pk_bits);
   return cudaGetLastError();
@@ -251,7 +261,8 @@ cudaError_t launch3(const int16_t* Sd, const int16_t* Su, const int16_t* Sh,
 
 // S: (B, H, W, D) int32 path sums; out: (B, H, W) float32 disparity with
 // -1.0 where invalid; frames b >= mirror_from in mirror mode. md >= 0; D a
-// multiple of 16, at most 256; W <= 4096.
+// multiple of 16, at most 256; 12 * W bytes of shared memory a block (W up
+// to 19370 on an H100's 227 KB).
 extern "C" int sdr_wta_lr(const int32_t* S, float* out, int B, int H, int W,
                           int D, int md, int uniq, int quant16, int disp12,
                           int apply_lr, int mirror_from, void* stream) {

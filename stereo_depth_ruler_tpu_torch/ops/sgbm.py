@@ -37,7 +37,10 @@ rows above and below: the per-tile matcher of the sharded path
 (``parallel/sharded.py``), the plain counterpart of the JAX package's
 ``sgbm_tile_pallas``. ``tile_down_sum``, ``tile_horizontal`` and
 ``tile_up_wta`` are the stages of its biased route (csrc/tile_sgm.cu's
-three sweeps), ``sgbm_tile_biased`` their composition.
+three sweeps), ``sgbm_tile_biased`` their composition. The same stages on
+a whole (B, H, W, D) volume, a frame a slab with no halo, are the plain
+version of the matcher's batch route (``sgbm_cuda.aggregate_wta``), with
+``tile_up_wta``'s ``mirror_lr`` for the shared pair's right matcher.
 """
 
 from __future__ import annotations
@@ -57,8 +60,8 @@ __all__ = ["SGBMParams", "sobel_clip", "bt_cost_volume", "box_filter_volume",
            "compute_disparity_pair", "cost_volume_pair", "sgbm_pair",
            "down_dirs", "up_dirs", "cost_down", "wta_lr3", "sgbm_staged",
            "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
-           "sgbm_tile", "tile_down_sum", "tile_horizontal", "tile_up_wta",
-           "sgbm_tile_biased"]
+           "sgbm_tile", "tile_down_sum", "tile_horizontal", "tile_up_sum",
+           "tile_up_wta", "sgbm_tile_biased"]
 
 _BIG = 1e9
 _BIGI = 2 ** 28   # "infinity" of the integer label sweeps
@@ -673,18 +676,26 @@ def tile_horizontal(C_body: torch.Tensor, S_dh: torch.Tensor,
         C_body.to(torch.float32), [(0, 1), (0, -1)], params)
 
 
+def tile_up_sum(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+                bias: float = 0.0) -> torch.Tensor:
+    """S = S_dh + bias + the up-going passes over the (..., R, W, D) body
+    rows, which start at their last row: the 8-path sum that the fused up
+    sweep hands to the WTA in registers; float32."""
+    return (S_dh.to(torch.float32) + bias
+            + _sum_passes(C_body.to(torch.float32), up_dirs(params.num_paths),
+                          params))
+
+
 def tile_up_wta(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
-                bias: float = 0.0, apply_lr: bool = True) -> torch.Tensor:
-    """``wta_lr`` of S = S_dh + bias + the up-going passes over the body
-    rows, which start at their last row: the plain version of the fused up
+                bias: float = 0.0, apply_lr: bool = True,
+                mirror_lr: bool = False) -> torch.Tensor:
+    """``wta_lr`` of ``tile_up_sum``: the plain version of the fused up
     sweep and WTA (with ``apply_lr``, and of the LR pass after it), and of
     the JAX package's ``up_wta_pallas(C_body, S_dh, None, params,
-    sd_offset=bias)``. Returns the (..., R, W) disparity, -1.0 where
-    invalid."""
-    S = (S_dh.to(torch.float32) + bias
-         + _sum_passes(C_body.to(torch.float32), up_dirs(params.num_paths),
-                       params))
-    return wta_lr(S, params, apply_lr)
+    sd_offset=bias, mirror_lr=mirror_lr)``. Returns the (..., R, W)
+    disparity, -1.0 where invalid."""
+    return wta_lr(tile_up_sum(C_body, S_dh, params, bias), params, apply_lr,
+                  mirror_lr)
 
 
 def sgbm_tile_biased(C: torch.Tensor, params: SGBMParams, bias: float,

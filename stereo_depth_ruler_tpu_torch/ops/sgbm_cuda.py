@@ -1,4 +1,4 @@
-"""The SGBM matcher on five hand-written CUDA kernels (``ops/csrc``).
+"""The SGBM matcher on hand-written CUDA kernels (``ops/csrc``).
 
 Counterpart of ``stereo_depth_ruler_tpu/ops/sgbm_pallas.py:sgbm_pallas``
 and, for the shared-cost pair, of ``sgbm_pair_pallas``: Sobel in plain
@@ -7,11 +7,24 @@ torch, then
 - K1 ``cost_volume``  (csrc/cost_box.cu): BT cost + box sum -> int16 C;
   ``cost_volume_pair``, its pair mode, writes the left and the right
   matcher's volumes in one launch;
-- K2 ``sgm_pass``     (csrc/sgm_pass.cu): one launch per path direction,
-  adding L into an int32 S (the 8-path sum reaches ~70000, past int16);
-- K3 ``wta_lr``       (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR;
-  ``mirror_from`` puts the trailing frames, the right matcher's, in its
-  mirror mode;
+- the aggregation, WTA and LR check (``aggregate_wta``), on the route
+  ``agg_route`` picks from the parameters and the width alone, before any
+  launch, as ``sgbm_pallas`` picks its branch (``fused_wta``, as there):
+  - the batch sweeps (csrc/tile_sgm.cu), the JAX main path's
+    ``_fused_aggregate_wta`` with a bias, where ``fused_wta``, 4 or 8
+    paths and ``tile_bias`` gives one, on frames no wider than the sweeps
+    take on the card (``sweep_max_width``): ``agg_down`` (the down-going
+    paths into an int16 S_dh = L_down - bias), ``agg_horiz`` (both
+    horizontal paths added into it) and ``agg_up_wta`` (the up-going paths
+    fused with the WTA, then the LR pass), over the whole batch; the
+    8-path sum never reaches device memory;
+  - otherwise (8 paths at block 7, whose S_dh passes the biased int16
+    range, fewer than 4 paths, ``fused_wta=False``, a D the sweeps do not
+    take, or a wider frame) K2 ``sgm_pass`` (csrc/sgm_pass.cu), one launch
+    per path direction adding L into an int32 S, and K3 ``wta_lr``
+    (csrc/wta_lr.cu): WTA, uniqueness, subpixel, LR;
+  ``mirror_from`` puts the trailing frames, the right matcher's, in the
+  mirror mode of either route;
 - K4 ``speckle_labels`` (csrc/speckle.cu): union-find CCL -> int32 labels;
 - K5 ``speckle_keep``   (csrc/speckle.cu): label histogram -> the
   disparity without the components of at most speckle_window_size pixels.
@@ -45,17 +58,19 @@ its route as the JAX package's ``_wta_bias`` does: where the down-going and
 horizontal paths' sum fits int16 as it is or shifted by a bias, the three
 sweeps of csrc/tile_sgm.cu (``tile_down``, ``tile_horiz``, ``tile_up_wta``
 with its LR pass), on one int16 volume S_dh; otherwise K2 x8 and K3 on an
-int32 S.
+int32 S. The batch route runs the same kernels over B frames a launch.
 
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
 ``ops/sgbm.py``; a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts kernel launches per wrapper and mode (``cost_box_pair`` and
-``wta_lr_mirror`` are the pair modes, ``sweep_labels`` and
-``sweep_propagate`` the sweep kernel's two, ``sgm_pass_i16`` K2 on an
-int16 S, ``sgbm_tile`` the tile matchers, ``tile_down``, ``tile_horiz``,
-``tile_up_wta`` and ``tile_lr`` tile_sgm.cu's kernels); nothing else
-touches it.
+counts kernel launches per wrapper and mode (``cost_box_pair``,
+``wta_lr_mirror`` and ``agg_up_wta_mirror`` are the pair modes,
+``sweep_labels`` and ``sweep_propagate`` the sweep kernel's two,
+``sgm_pass_i16`` K2 on an int16 S, ``sgbm_tile`` the tile matchers,
+``tile_down``, ``tile_horiz``, ``tile_up_wta`` and ``tile_lr`` tile_sgm.cu's
+kernels on a tile, ``agg_down``, ``agg_horiz``, ``agg_up_wta`` and
+``agg_lr`` the same kernels on the matcher's batch); nothing else touches
+it.
 """
 
 from __future__ import annotations
@@ -77,16 +92,21 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "sgbm_pair_cuda", "cost_down", "aggregate_i16", "wta_lr3",
            "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
            "sgbm_staged_cuda", "sgbm_tile_cuda", "tile_bias", "tile_down",
-           "tile_horiz", "tile_up_wta"]
+           "tile_horiz", "tile_up_wta", "sweeps_take", "sweep_max_width",
+           "agg_route",
+           "agg_down", "agg_horiz", "agg_up_wta", "aggregate_wta"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
             "sweep_labels": 0, "sweep_propagate": 0, "cost_down": 0,
             "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
             "transpose_leading": 0, "transpose_dhw": 0, "sgbm_tile": 0,
-            "tile_down": 0, "tile_horiz": 0, "tile_up_wta": 0, "tile_lr": 0}
+            "tile_down": 0, "tile_horiz": 0, "tile_up_wta": 0, "tile_lr": 0,
+            "agg_down": 0, "agg_horiz": 0, "agg_up_wta": 0,
+            "agg_up_wta_mirror": 0, "agg_lr": 0}
 I16_MAX = 32767
 SWEEP_MAX_SIDE = 32768   # the sweep kernel's largest H and W (csrc/sweep.cu)
+SWEEP_MAX_STRIP = 32     # columns of a strip of csrc/tile_sgm.cu, at most
 
 
 def reset_launch_counts() -> None:
@@ -502,6 +522,16 @@ def tile_bias(params: SGBMParams) -> Optional[int]:
     return None
 
 
+def _agg_scratch(lib, C: torch.Tensor) -> torch.Tensor:
+    """The zeroed edge-exchange scratch of one sweep over the (B, ., W, D)
+    volume C (a tile's slab: B = 1)."""
+    B, _, W, D = C.shape
+    n = lib.sdr_agg_scratch_size(B, W, D)
+    if n < 0:
+        raise RuntimeError(f"sdr_agg_scratch_size({B}, {W}, {D}) failed")
+    return torch.zeros(n, dtype=torch.int16, device=C.device)
+
+
 def _require_slab(C: torch.Tensor, params: SGBMParams, name: str,
                   S_dh: Optional[torch.Tensor] = None) -> None:
     """A (1, M, W, D) int16 slab, and S_dh of its shape where given."""
@@ -530,8 +560,7 @@ def tile_down(C: torch.Tensor, params: SGBMParams, top_halo: int,
     S = torch.empty((1, M - top_halo, W, D), dtype=torch.int16,
                     device=C.device)
     lib = kernels.load()
-    scratch = torch.zeros(lib.sdr_tile_scratch_size(W, D), dtype=torch.int16,
-                          device=C.device)
+    scratch = _agg_scratch(lib, C)
     rc = lib.sdr_tile_down(C.data_ptr(), S.data_ptr(), scratch.data_ptr(), M,
                            W, D, top_halo, int(bias), params.P1, params.P2,
                            len(plain.down_dirs(params.num_paths)),
@@ -570,8 +599,7 @@ def _tile_up(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
     d2p = torch.empty((local, W) if lr else (1,), dtype=torch.int32,
                       device=C_body.device)
     lib = kernels.load()
-    scratch = torch.zeros(lib.sdr_tile_scratch_size(W, D), dtype=torch.int16,
-                          device=C_body.device)
+    scratch = _agg_scratch(lib, C_body)
     rc = lib.sdr_tile_up_wta(
         C_body.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
         scratch.data_ptr(), R, W, D, local, int(bias), params.P1, params.P2,
@@ -653,21 +681,193 @@ def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
     return disp
 
 
+def sweeps_take(D: int) -> bool:
+    """Whether the sweeps of csrc/tile_sgm.cu take D disparities: 16 to
+    256, a multiple of 16."""
+    return 16 <= D <= 256 and D % 16 == 0
+
+
+def sweep_max_width(device: torch.device) -> Optional[int]:
+    """The widest frame the sweeps of csrc/tile_sgm.cu take on ``device``:
+    every strip of a frame is resident at once, at most one a
+    multiprocessor of at most ``SWEEP_MAX_STRIP`` columns (4224 on an
+    H100); None on the CPU, whose plain stages take any width."""
+    if device.type != "cuda":
+        return None
+    props = torch.cuda.get_device_properties(device)
+    return SWEEP_MAX_STRIP * props.multi_processor_count
+
+
+def agg_route(params: SGBMParams, fused_wta: bool = True, width: int = 0,
+              max_width: Optional[int] = None) -> str:
+    """The matcher's aggregation route, from the parameters and shapes
+    alone, before any launch, as ``sgbm_pallas`` picks its branch:
+    "sweeps" (the batch sweeps on an int16 S_dh, the JAX
+    ``_fused_aggregate_wta`` with a bias) where ``fused_wta``, 4 or 8
+    paths, ``tile_bias`` not None, D one the sweeps take and ``width`` at
+    most ``max_width`` (``sweep_max_width``; None: any width); else
+    "passes" (K2 per direction into an int32 S, then K3), whose output
+    equals the JAX three-volume and unfused branches."""
+    if (fused_wta and params.num_paths >= 4
+            and tile_bias(params) is not None
+            and sweeps_take(params.num_disparities)
+            and (max_width is None or width <= max_width)):
+        return "sweeps"
+    return "passes"
+
+
+def _require_batch(C: torch.Tensor, params: SGBMParams, name: str,
+                   S_dh: Optional[torch.Tensor] = None) -> None:
+    """A (B, H, W, D) int16 volume, and S_dh of its shape where given."""
+    kernels.require(C, torch.int16, 4, name)
+    if C.shape[3] != params.num_disparities:
+        raise ValueError(f"{name}: need (B, H, W, {params.num_disparities}), "
+                         f"got {tuple(C.shape)}")
+    if S_dh is not None:
+        kernels.require(S_dh, torch.int16, 4, "S_dh")
+        if S_dh.shape != C.shape:
+            raise ValueError(f"shape mismatch {tuple(C.shape)} "
+                             f"{tuple(S_dh.shape)}")
+
+
+def agg_down(C: torch.Tensor, params: SGBMParams, bias: int) -> torch.Tensor:
+    """(B, H, W, D) int16 cost volume -> int16 S_dh of its shape: the
+    down-going paths (``plain.down_dirs``) minus ``bias`` (the plain
+    ``tile_down_sum`` of each frame), from the down sweep of
+    csrc/tile_sgm.cu over the whole batch. The caller keeps S_dh within
+    int16 (``tile_bias``)."""
+    if not kernels.on_cuda(C):
+        return plain.tile_down_sum(C, params, 0, bias).to(torch.int16)
+    _require_batch(C, params, "C")
+    B, H, W, D = C.shape
+    S = torch.empty_like(C)
+    lib = kernels.load()
+    scratch = _agg_scratch(lib, C)
+    rc = lib.sdr_agg_down(C.data_ptr(), S.data_ptr(), scratch.data_ptr(), B,
+                          H, W, D, int(bias), params.P1, params.P2,
+                          len(plain.down_dirs(params.num_paths)),
+                          kernels.stream())
+    kernels.check(rc, "agg_down")
+    LAUNCHES["agg_down"] += 1
+    return S
+
+
+def agg_horiz(C: torch.Tensor, S_dh: torch.Tensor,
+              params: SGBMParams) -> None:
+    """Both horizontal paths over the (B, H, W, D) int16 volume added into
+    S_dh in place (``plain.tile_horizontal``): the horizontal sweep of
+    csrc/tile_sgm.cu on its B * H rows."""
+    if not kernels.on_cuda(C, S_dh):
+        S_dh.copy_(plain.tile_horizontal(C, S_dh, params))
+        return
+    _require_batch(C, params, "C", S_dh)
+    B, H, W, D = C.shape
+    rc = kernels.load().sdr_tile_horiz(C.data_ptr(), S_dh.data_ptr(), B * H,
+                                       W, D, params.P1, params.P2,
+                                       kernels.stream())
+    kernels.check(rc, "agg_horiz")
+    LAUNCHES["agg_horiz"] += 1
+
+
+def _agg_up(C: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+            bias: int, lr: bool, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the batch up sweep with the WTA on CUDA volumes: the (B, H, W)
+    disparity before the LR check and, with ``lr``, the (B, H, W) int32
+    winner scatter that the LR pass reads; frames from ``m`` on
+    mirrored."""
+    _require_batch(C, params, "C", S_dh)
+    if params.min_disparity < 0:
+        raise ValueError("the batch sweeps need min_disparity >= 0, got "
+                         f"{params.min_disparity}")
+    B, H, W, D = C.shape
+    out = torch.empty((B, H, W), dtype=torch.float32, device=C.device)
+    d2p = torch.empty((B, H, W) if lr else (1,), dtype=torch.int32,
+                      device=C.device)
+    lib = kernels.load()
+    scratch = _agg_scratch(lib, C)
+    rc = lib.sdr_agg_up_wta(
+        C.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
+        scratch.data_ptr(), B, H, W, D, int(bias), params.P1, params.P2,
+        len(plain.up_dirs(params.num_paths)), params.min_disparity,
+        params.uniqueness_ratio, int(params.quantize_16), int(lr), m,
+        kernels.stream())
+    name = "agg_up_wta" if m == B else "agg_up_wta_mirror"
+    kernels.check(rc, name)
+    LAUNCHES[name] += 1
+    return out, d2p
+
+
+def _agg_lr(out: torch.Tensor, d2p: torch.Tensor, params: SGBMParams,
+            m: int) -> None:
+    """Launch the batch LR pass on ``_agg_up``'s outputs, in place."""
+    B, H, W = out.shape
+    rc = kernels.load().sdr_agg_lr(out.data_ptr(), d2p.data_ptr(), B, H, W,
+                                   params.num_disparities,
+                                   params.min_disparity,
+                                   params.disp12_max_diff, m,
+                                   kernels.stream())
+    kernels.check(rc, "agg_lr")
+    LAUNCHES["agg_lr"] += 1
+
+
+def agg_up_wta(C: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
+               bias: int, apply_lr: bool = True,
+               mirror_from: Optional[int] = None) -> torch.Tensor:
+    """(B, H, W, D) int16 cost volume and S_dh -> (B, H, W) float32
+    disparity, -1.0 where invalid: the up-going paths fused with the WTA on
+    S_dh + bias + L_up (``plain.tile_up_wta`` of each frame), then the LR
+    pass; csrc/tile_sgm.cu over the whole batch. Frames from
+    ``mirror_from`` on (None: none) are right-matcher volumes in
+    un-mirrored orientation and get the mirrored WTA/LR."""
+    B = C.shape[0]
+    m = B if mirror_from is None else mirror_from
+    if not 0 <= m <= B:
+        raise ValueError(f"mirror_from must be in [0, {B}], got {m}")
+    if not kernels.on_cuda(C, S_dh):
+        return torch.cat([plain.tile_up_wta(C[a:b], S_dh[a:b], params, bias,
+                                            apply_lr, mirror_lr=mirror)
+                          for a, b, mirror in ((0, m, False), (m, B, True))
+                          if b > a])
+    lr = apply_lr and params.disp12_max_diff >= 0
+    out, d2p = _agg_up(C, S_dh, params, bias, lr, m)
+    if lr:
+        _agg_lr(out, d2p, params, m)
+    return out
+
+
+def aggregate_wta(C: torch.Tensor, params: SGBMParams, apply_lr: bool = True,
+                  mirror_from: Optional[int] = None,
+                  fused_wta: bool = True) -> torch.Tensor:
+    """(B, H, W, D) int16 cost volume -> (B, H, W) float32 disparity, -1.0
+    where invalid: the path sum's WTA and LR check on the route
+    ``agg_route`` picks for C's width and device, the batch sweeps
+    (``agg_down``, ``agg_horiz``, ``agg_up_wta``) or K2 per direction and
+    K3. Both give the same bits. ``mirror_from`` as in ``wta_lr``."""
+    if agg_route(params, fused_wta, C.shape[2],
+                 sweep_max_width(C.device)) == "sweeps":
+        bias = tile_bias(params)
+        S_dh = agg_down(C, params, bias)
+        agg_horiz(C, S_dh, params)
+        return agg_up_wta(C, S_dh, params, bias, apply_lr, mirror_from)
+    return wta_lr(aggregate(C, params), params, apply_lr, mirror_from)
+
+
 def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
               params: SGBMParams = SGBMParams(), apply_lr: bool = True,
-              apply_speckle: bool = True) -> torch.Tensor:
+              apply_speckle: bool = True,
+              fused_wta: bool = True) -> torch.Tensor:
     """(B, H, W) float32 pair -> (B, H, W) float32 disparity, invalid -1.0:
-    WTA and the LR check, then, with ``apply_speckle``, the speckle filter
-    when ``speckle_window_size > 0``, told validity by the WTA/LR mask."""
+    K1, ``aggregate_wta`` (WTA and the LR check; ``fused_wta`` as in
+    ``sgbm_pallas``), then, with ``apply_speckle``, the speckle filter when
+    ``speckle_window_size > 0``, told validity by the WTA/LR mask."""
     _check_params(params, left, right)
     lt, rt = _sobel_pair(left, right, params)
     C = cost_volume(lt, rt, params)
-    S = aggregate(C, params)
-    if not kernels.on_cuda(S):
-        return plain.wta_lr_speckle(S.float(), params, apply_lr,
-                                    apply_speckle)
-    disp = wta_lr(S, params, apply_lr)
-    del C, S
+    if not kernels.on_cuda(C):
+        return plain.wta_lr_speckle(aggregate(C, params).float(), params,
+                                    apply_lr, apply_speckle)
+    disp = aggregate_wta(C, params, apply_lr, fused_wta=fused_wta)
+    del C
     return _speckle(disp, params) if apply_speckle else disp
 
 
@@ -694,16 +894,16 @@ def _speckle(disp: torch.Tensor, params: SGBMParams) -> torch.Tensor:
 
 
 def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
-                   params: SGBMParams = SGBMParams()
+                   params: SGBMParams = SGBMParams(), fused_wta: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) float32 pair -> the left and the right matcher's (B, H, W)
     disparities, invalid -1.0, from one pair volume: K1's pair mode writes
-    both volumes into one (2B, H, W, D) buffer, K2 sums the paths of all 2B
-    frames (the path sum is mirror-equivariant, so the right volume needs
-    no mirrored pass), K3 runs the right half in mirror mode, then the
-    speckle filter on all 2B maps. Bitwise equal to ``sgbm_cuda`` on the
-    stacked pair (the right matcher on mirrored, swapped frames, flipped
-    back) at every width."""
+    both volumes into one (2B, H, W, D) buffer, ``aggregate_wta`` runs all
+    2B frames with the right half in mirror mode (the path sum is
+    mirror-equivariant, so the right volume needs no mirrored pass), as the
+    JAX pair batches its passes, then the speckle filter on all 2B maps.
+    Bitwise equal to ``sgbm_cuda`` on the stacked pair (the right matcher
+    on mirrored, swapped frames, flipped back) at every width."""
     _check_params(params, left, right)
     if params.min_disparity != 0:
         raise ValueError("the shared-cost pair needs min_disparity 0, got "
@@ -714,8 +914,7 @@ def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
     lt, rt = _sobel_pair(left, right, params)
     B = lt.shape[0]
     C = cost_volume_pair(lt, rt, params)
-    S = aggregate(C, params)
-    disp = wta_lr(S, params, mirror_from=B)
-    del C, S
+    disp = aggregate_wta(C, params, mirror_from=B, fused_wta=fused_wta)
+    del C
     disp = _speckle(disp, params)
     return disp[:B], disp[B:]

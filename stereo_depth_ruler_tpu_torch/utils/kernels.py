@@ -88,9 +88,6 @@ _SIGNATURES = {
     "sdr_radix_scratch_size": [_I, _I],
     # skey, sidx, out, B, N, n_out, mode, max_size, L, slots, stream
     "sdr_sorted_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # W, D -> int16 entries of zeroed scratch one tile sweep needs (a long
-    # long)
-    "sdr_tile_scratch_size": [_I, _I],
     # C, S, scratch, M, W, D, top, bias, P1, P2, ndir, stream
     "sdr_tile_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # C, S, R, W, D, P1, P2, stream
@@ -101,11 +98,22 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P],
     # out, d2p, local, W, D, md, disp12, stream
     "sdr_tile_lr": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # B, W, D -> int16 entries of zeroed scratch one sweep over B frames
+    # (or a tile's slab) needs (a long long; -1 for bad arguments)
+    "sdr_agg_scratch_size": [_I, _I, _I],
+    # C, S, scratch, B, H, W, D, bias, P1, P2, ndir, stream
+    "sdr_agg_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # C, S, out, d2p, scratch, B, H, W, D, bias, P1, P2, ndir, md, uniq,
+    # quant16, lr, mirror_from, stream
+    "sdr_agg_up_wta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P],
+    # out, d2p, B, H, W, D, md, disp12, mirror_from, stream
+    "sdr_agg_lr": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _RESTYPES = {"sdr_radix_scratch_size": ctypes.c_longlong,
              "sdr_cost_down_scratch_size": ctypes.c_longlong,
-             "sdr_tile_scratch_size": ctypes.c_longlong}
+             "sdr_agg_scratch_size": ctypes.c_longlong}
 
 _lib = None
 

@@ -728,7 +728,8 @@ def test_staged_matcher_matches_fused(cuda, num_paths, speckle):
     left, right = (torch.tensor(a, device=cuda) for a in pair(60, 140, 32, 9))
     got = sc.sgbm_staged_cuda(left, right, params)
     torch.cuda.synchronize()
-    assert torch.equal(got, sc.sgbm_cuda(left, right, params))
+    assert torch.equal(got, sc.sgbm_cuda(left, right, params,
+                                         fused_wta=False))
     assert torch.equal(got, plain.sgbm_staged(left, right, params))
     with pytest.raises(ValueError, match="int16"):
         sc.sgbm_staged_cuda(left, right, SGBMParams(num_disparities=32,
@@ -772,6 +773,7 @@ def test_transposes_match_permute(cuda, dtype, shape):
     (36, 83, dict(num_disparities=64)),                     # ragged width
     (30, 70, dict(num_disparities=32, block_size=7)),       # int32 route
     (28, 61, dict(num_disparities=80, block_size=7, num_paths=4)),
+    (12, 1500, dict(num_disparities=32)),   # strips past 10: WTA inline
 ])
 @pytest.mark.parametrize("top,bottom", [(0, 0), (8, 8), (64, 0), (8, 64),
                                         (64, 64)])
@@ -827,6 +829,163 @@ def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
         assert torch.equal(S.float(), want)
 
 
+def batch_pair(B, H, W, D, seed):
+    """B random-texture frames whose right views are shifted by D // 3."""
+    pairs = [pair(H, W, D, seed=seed + i) for i in range((B + 1) // 2)]
+    return (np.concatenate([p[j] for p in pairs])[:B] for j in (0, 1))
+
+
+def ran_since(before):
+    return {k: v - before[k] for k, v in sc.LAUNCHES.items()
+            if v != before[k]}
+
+
+@pytest.mark.parametrize("B,H,W,kw", [
+    (1, 40, 301, dict(num_disparities=16)),
+    (2, 33, 157, dict(num_disparities=48, min_disparity=3)),
+    (8, 24, 301, dict(num_disparities=128)),
+    (2, 20, 523, dict(num_disparities=256)),
+    (8, 12, 1100, dict(num_disparities=256, block_size=3)),   # waves
+    (8, 17, 45, dict(num_disparities=16, num_paths=4, block_size=7)),
+    (2, 26, 201, dict(num_disparities=64, block_size=3, quantize_16=False,
+                      disp12_max_diff=0)),
+    (1, 31, 271, dict(num_disparities=48, uniqueness_ratio=0,
+                      disp12_max_diff=-1)),
+    (1, 16, 1500, dict(num_disparities=32)),        # one frame, wide strips
+    (4, 18, 403, dict(num_disparities=64, num_paths=4, block_size=7)),
+])
+def test_batch_sweeps_match_plain(cuda, B, H, W, kw):
+    """The matcher's batch route over B frames (csrc/tile_sgm.cu's sweeps
+    at a frame a slab) against its plain stages frame by frame, bitwise,
+    and against K2 x8 + K3 (``fused_wta=False``); widths that no strip
+    width divides (a strip is ceil(W / SMs) columns), LR on and off, and
+    the mirror mode with the trailing frames (or all of them) mirrored;
+    at 8 frames of 1100 x 256 more frames than the card holds at once, so
+    the frames go in waves. The cases cover each launch plan: one frame
+    of narrow strips (WTA warps) and of wide ones, fewer than 4 frames and
+    4 or more (path warps of one column and of two, the WTA inline)."""
+    params = SGBMParams(speckle_window_size=0, **kw)
+    bias = sc.tile_bias(params)
+    assert bias is not None and sc.agg_route(params) == "sweeps"
+    D = params.num_disparities
+    left, right = batch_pair(B, H, W, D, seed=W)
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(torch.tensor(left, device=cuda), cap)
+    rt = plain.sobel_clip(torch.tensor(right, device=cuda), cap)
+    C = sc.cost_volume(lt, rt, params)
+    before = dict(sc.LAUNCHES)
+    S = sc.agg_down(C, params, bias)
+    torch.cuda.synchronize()
+    assert ran_since(before) == {"agg_down": 1}
+    want = plain.tile_down_sum(C, params, 0, bias)
+    assert torch.equal(S.float(), want)
+    want = plain.tile_horizontal(C, S, params)
+    sc.agg_horiz(C, S, params)
+    torch.cuda.synchronize()
+    assert torch.equal(S.float(), want)
+    S32 = sc.aggregate(C, params)
+    for m in sorted({B, B // 2, 0}):
+        for apply_lr in (True, False):
+            before = dict(sc.LAUNCHES)
+            got = sc.agg_up_wta(C, S, params, bias, apply_lr, mirror_from=m)
+            torch.cuda.synchronize()
+            lr = apply_lr and params.disp12_max_diff >= 0
+            assert ran_since(before) == {
+                "agg_up_wta" if m == B else "agg_up_wta_mirror": 1,
+                **({"agg_lr": 1} if lr else {})}
+            for b in range(B):
+                assert torch.equal(got[b], plain.tile_up_wta(
+                    C[b], S[b], params, bias, apply_lr, mirror_lr=b >= m))
+            assert torch.equal(got, sc.wta_lr(S32, params, apply_lr,
+                                              mirror_from=m))
+            assert torch.equal(got, sc.aggregate_wta(C, params, apply_lr, m))
+
+
+@pytest.mark.parametrize("kw,route", [
+    (dict(), "sweeps"),
+    (dict(num_paths=4), "sweeps"),
+    (dict(block_size=3), "sweeps"),
+    (dict(block_size=7), "passes"),                  # bias None
+    (dict(num_paths=2), "passes"),
+    (dict(fused_wta=False), "passes"),
+])
+def test_sgbm_cuda_takes_the_route_it_picks(cuda, kw, route):
+    """sgbm_cuda and sgbm_pair_cuda launch the batch sweeps and no K2 or
+    K3 on the sweeps' route, K2 per direction and K3 on the other, and
+    give the same bits either way (and the plain matcher's)."""
+    kw = dict(kw)
+    fused = kw.pop("fused_wta", True)
+    params = SGBMParams(num_disparities=48, speckle_window_size=20,
+                        speckle_range=2, **kw)
+    assert sc.agg_route(params, fused) == route
+    left, right = (torch.tensor(a, device=cuda)
+                   for a in batch_pair(4, 40, 150, 48, seed=7))
+    before = dict(sc.LAUNCHES)
+    got = sc.sgbm_cuda(left, right, params, fused_wta=fused)
+    torch.cuda.synchronize()
+    n = len(params.path_dirs)
+    matcher = ({"agg_down": 1, "agg_horiz": 1, "agg_up_wta": 1, "agg_lr": 1}
+               if route == "sweeps" else {"sgm_pass": n, "wta_lr": 1})
+    assert ran_since(before) == {"cost_box": 1, "speckle_labels": 1,
+                                 "speckle_keep": 1, **matcher}
+    other = sc.sgbm_cuda(left, right, params, fused_wta=route != "sweeps")
+    assert torch.equal(got, other)
+    assert torch.equal(got, plain.sgbm(left, right, params))
+    if params.num_paths < 4:
+        return
+    before = dict(sc.LAUNCHES)
+    dl, dr = sc.sgbm_pair_cuda(left, right, params, fused_wta=fused)
+    torch.cuda.synchronize()
+    matcher = ({"agg_down": 1, "agg_horiz": 1, "agg_up_wta_mirror": 1,
+                "agg_lr": 1} if route == "sweeps"
+               else {"sgm_pass": n, "wta_lr_mirror": 1})
+    assert ran_since(before) == {"cost_box_pair": 1, "speckle_labels": 1,
+                                 "speckle_keep": 1, **matcher}
+    ol, orr = sc.sgbm_pair_cuda(left, right, params,
+                                fused_wta=route != "sweeps")
+    assert torch.equal(dl, ol) and torch.equal(dr, orr)
+    dd = sc.sgbm_cuda(torch.cat([left, right.flip(-1)]),
+                      torch.cat([right, left.flip(-1)]), params,
+                      fused_wta=False)
+    assert torch.equal(dl, dd[:4]) and torch.equal(dr, dd[4:].flip(-1))
+
+
+@pytest.mark.parametrize("extra,route", [(0, "sweeps"), (1, "passes")])
+def test_route_at_the_widest_frame_the_sweeps_take(cuda, extra, route):
+    """A frame of ``sweep_max_width`` columns (a strip of SWEEP_MAX_STRIP
+    columns a multiprocessor) takes the batch sweeps; one column more takes
+    K2 per direction + K3, chosen before any launch (K3 past 4096 columns
+    on the opt-in shared memory); sgbm_cuda and sgbm_pair_cuda equal the
+    plain matcher either way."""
+    params = SGBMParams(num_disparities=16, speckle_window_size=20,
+                        speckle_range=2)
+    W = sc.sweep_max_width(cuda) + extra
+    assert sc.agg_route(params, True, W, sc.sweep_max_width(cuda)) == route
+    left, right = (torch.tensor(a, device=cuda)
+                   for a in batch_pair(1, 12, W, 16, seed=5))
+    before = dict(sc.LAUNCHES)
+    got = sc.sgbm_cuda(left, right, params)
+    torch.cuda.synchronize()
+    matcher = ({"agg_down": 1, "agg_horiz": 1, "agg_up_wta": 1, "agg_lr": 1}
+               if route == "sweeps" else {"sgm_pass": 8, "wta_lr": 1})
+    assert ran_since(before) == {"cost_box": 1, "speckle_labels": 1,
+                                 "speckle_keep": 1, **matcher}
+    # the right matcher: mirrored, swapped frames, flipped back
+    stack_l = torch.cat([left, right.flip(-1)])
+    stack_r = torch.cat([right, left.flip(-1)])
+    want = plain.sgbm(stack_l, stack_r, params)
+    assert torch.equal(got, want[:1])
+    before = dict(sc.LAUNCHES)
+    dl, dr = sc.sgbm_pair_cuda(left, right, params)
+    torch.cuda.synchronize()
+    matcher = ({"agg_down": 1, "agg_horiz": 1, "agg_up_wta_mirror": 1,
+                "agg_lr": 1} if route == "sweeps"
+               else {"sgm_pass": 8, "wta_lr_mirror": 1})
+    assert ran_since(before) == {"cost_box_pair": 1, "speckle_labels": 1,
+                                 "speckle_keep": 1, **matcher}
+    assert torch.equal(dl, want[:1]) and torch.equal(dr, want[1:].flip(-1))
+
+
 @pytest.mark.parametrize("block", [5, 7])
 def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path, block):
     """A world of one NCCL rank on the mesh (1, 1, 1): sgbm_sharded takes
@@ -851,7 +1010,7 @@ def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path, block):
         launches = dict(sc.LAUNCHES)
     finally:
         dist.destroy_process_group()
-    want = sc.sgbm_cuda(left[None], right[None], params)[0]
+    want = sc.sgbm_cuda(left[None], right[None], params, fused_wta=False)[0]
     assert torch.equal(got, want)
     tile = ({"sgm_pass", "wta_lr"} if block == 7 else
             {"tile_down", "tile_horiz", "tile_up_wta", "tile_lr"})
@@ -865,7 +1024,8 @@ def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path, block):
     tiles = torch.cat([_sgbm_cuda_tile(left, right, params, k, 2, 32, 32)
                        for k in range(2)])
     assert torch.equal(tiles, sc.sgbm_cuda(left[None], right[None], params,
-                                           apply_speckle=False)[0])
+                                           apply_speckle=False,
+                                           fused_wta=False)[0])
 
 
 def test_dryrun_multichip_on_the_cards(cuda):

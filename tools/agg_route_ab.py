@@ -1,0 +1,218 @@
+"""The sweeps of csrc/tile_sgm.cu timed in turns on the card: their launch
+plans against each other, or K9's sweeps against another tree's.
+
+    python tools/agg_route_ab.py --plans [--reps N]
+    python tools/agg_route_ab.py --k9 [--root DIR] [--reps N]
+
+``--plans`` builds csrc/tile_sgm.cu once for each fixed launch plan,
+``columns_a_warp`` returning 1 or 2 and ``inline_wta`` false or true (the
+source's two choosers rewritten to return constants, linked with
+csrc/wta_lr.cu alone into a library of its own under the package's
+``_build/plans``). On K1's int16 cost volume of B random-texture frames
+(the right view the left one shifted by D // 3 with noise) it then times
+the batch down sweep (``agg_down``) and up sweep with the WTA
+(``sgbm_cuda._agg_up``, LR scatter on) of the package's own library
+("chosen": its choosers decide) and of every fixed plan in turns (each,
+then each again in reverse order; the mean of the two), at 1, 2, 4 and 8
+frames of 720x1280x128, 8 frames and one of 720x1280x256, and one
+1440x2560x256 frame, and holds every plan's output to the chosen one's
+bit for bit. A plan that cannot launch at a shape (shared memory past
+the card's) is printed as such.
+
+``--k9`` times K9's one-frame sweeps (``tile_down``, ``tile_horiz``,
+``tile_up_wta`` with its LR pass, and ``sgbm_tile_cuda``) on a
+1x720x1280x128 and a 1x1440x2560x256 slab; ``--root DIR`` imports the
+package from DIR (an unpacked checkout), so that two trees are timed in
+turns, one process each. Every line names the card and its power limit.
+It needs a CUDA card and nvcc.
+"""
+
+import argparse
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+
+def card():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def volume(B, H, W, D, params, seed=0):
+    import numpy as np
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import sgbm as plain
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    rng = np.random.default_rng(seed)
+    left = rng.uniform(0, 255, (B, H, W)).astype(np.float32)
+    right = np.clip(np.roll(left, -(D // 3), axis=2)
+                    + rng.normal(0, 2, left.shape), 0, 255)
+    cap = params.pre_filter_cap
+    lt = plain.sobel_clip(torch.tensor(left, device="cuda"), cap)
+    rt = plain.sobel_clip(torch.tensor(right.astype(np.float32),
+                                       device="cuda"), cap)
+    return sc.cost_volume(lt, rt, params)
+
+
+def in_turns(fns, reps):
+    """ms per call of each fn, timed in the turns a, b, ..., b, a (mean of
+    the two turns each)."""
+    from stereo_depth_ruler_tpu_torch.utils.profiling import stage_time
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    ms = [0.0] * len(fns)
+    for i in order:
+        ms[i] += stage_time(fns[i], reps) / 2
+    return ms
+
+
+PLANS = [(1, False), (1, True), (2, False), (2, True)]
+
+
+def build_plans():
+    """A library of tile_sgm.cu (and wta_lr.cu, for the error strings) for
+    each fixed plan of PLANS, every nvcc at once; returns the handles."""
+    import ctypes
+    from stereo_depth_ruler_tpu_torch.utils import kernels
+    src = (kernels.CSRC_DIR / "tile_sgm.cu").read_text()
+    nvcc = kernels._nvcc()
+    compiles, links, libs = [], [], []
+    for cw, inl in PLANS:
+        work = kernels.BUILD_DIR / "plans" / f"cw{cw}_inl{int(inl)}"
+        work.mkdir(parents=True, exist_ok=True)
+        text, n1 = re.subn(r"(int columns_a_warp\([^)]*\) \{)[^}]*\}",
+                           rf"\1 return {cw}; }}", src)
+        text, n2 = re.subn(r"(bool inline_wta\([^)]*\) \{)[^}]*\}",
+                           rf"\1 return {'true' if inl else 'false'}; }}",
+                           text)
+        if (n1, n2) != (1, 1):
+            raise RuntimeError("tile_sgm.cu's plan choosers not found")
+        (work / "tile_sgm.cu").write_text(text)
+        objs = [work / "tile_sgm.o", work / "wta_lr.o"]
+        compiles += [[nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(objs[0]),
+                      str(work / "tile_sgm.cu")],
+                     [nvcc, *kernels.NVCC_FLAGS, "-c", "-o", str(objs[1]),
+                      str(kernels.CSRC_DIR / "wta_lr.cu")]]
+        links.append([nvcc, *kernels._LINK_FLAGS, "-o",
+                      str(work / "plan.so"), *map(str, objs)])
+        libs.append(work / "plan.so")
+    kernels._run_all(compiles)
+    kernels._run_all(links)
+    handles = []
+    for path in libs:
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in kernels._SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = kernels._RESTYPES.get(
+                    name, ctypes.c_int)
+        lib.sdr_error_string.argtypes = [ctypes.c_int]
+        lib.sdr_error_string.restype = ctypes.c_char_p
+        handles.append(lib)
+    return handles
+
+
+def plans(reps, name):
+    import torch
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    from stereo_depth_ruler_tpu_torch.utils import kernels
+    own = kernels.load()
+    handles = build_plans()
+    shapes = [(1, 720, 1280, 128), (2, 720, 1280, 128), (4, 720, 1280, 128),
+              (8, 720, 1280, 128), (1, 720, 1280, 256), (8, 720, 1280, 256),
+              (1, 1440, 2560, 256)]
+
+    def on(lib, fn):
+        def run():
+            kernels._lib = lib
+            try:
+                return fn()
+            finally:
+                kernels._lib = own
+        return run
+
+    for B, H, W, D in shapes:
+        params = SGBMParams(num_disparities=D, speckle_window_size=0)
+        bias = sc.tile_bias(params)
+        C = volume(B, H, W, D, params)
+        S = sc.agg_down(C, params, bias)
+        sweeps = {
+            "agg_down": (False, lambda: sc.agg_down(C, params, bias)),
+            "agg_up_wta": (True, lambda: sc._agg_up(C, S, params, bias, True,
+                                                    B)[0]),
+        }
+        for sweep, (up, fn) in sweeps.items():
+            want, got = fn(), None
+            runs, labels = [fn], ["chosen"]
+            for (cw, inl), lib in zip(PLANS, handles):
+                if not up and inl:
+                    continue   # the down sweep has no WTA
+                label = f"cw {cw}" + (f" inline {int(inl)}" if up else "")
+                try:
+                    got = on(lib, fn)()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    print(f"agg_route_ab --plans [{name}] {B}x{H}x{W}x{D} "
+                          f"{sweep} {label}: does not launch ({e})",
+                          flush=True)
+                    continue
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{sweep} {label} at "
+                                         f"{B}x{H}x{W}x{D}: output differs")
+                runs.append(on(lib, fn))
+                labels.append(label)
+            del got
+            ms = in_turns(runs, reps)
+            best = min(ms)
+            for label, t in zip(labels, ms):
+                print(f"agg_route_ab --plans [{name}] {B}x{H}x{W}x{D} "
+                      f"{sweep} {label}: {t:.4f} ms ({t / best:.3f}x the "
+                      "fastest)", flush=True)
+        del C, S
+        torch.cuda.empty_cache()
+
+
+def k9(reps, name):
+    from stereo_depth_ruler_tpu_torch import SGBMParams
+    from stereo_depth_ruler_tpu_torch.ops import sgbm_cuda as sc
+    for H, W, D in ((720, 1280, 128), (1440, 2560, 256)):
+        params = SGBMParams(num_disparities=D, speckle_window_size=0)
+        C = volume(1, H, W, D, params)
+        bias = sc.tile_bias(params)
+        S = sc.tile_down(C, params, 0, bias)
+        fns = {"tile_down": lambda: sc.tile_down(C, params, 0, bias),
+               "tile_horiz": lambda: sc.tile_horiz(C, S, params),
+               "tile_up_wta+lr": lambda: sc.tile_up_wta(C, S, params, bias,
+                                                        H),
+               "sgbm_tile": lambda: sc.sgbm_tile_cuda(C, params)}
+        for k, fn in fns.items():
+            ms = in_turns([fn], reps)[0]
+            print(f"agg_route_ab --k9 [{name}] 1x{H}x{W}x{D}: {k} {ms:.4f} "
+                  "ms", flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--plans", action="store_true")
+    mode.add_argument("--k9", action="store_true")
+    ap.add_argument("--root", default=None)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root or Path(__file__).resolve()
+                                .parent.parent).resolve()))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("agg_route_ab: needs a CUDA card")
+    name = card()
+    if args.k9:
+        k9(args.reps, name)
+    else:
+        plans(args.reps, name)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,10 @@ Counterpart of tools/profile_stages.py for the port. It times, through
 ``utils.profiling.roofline_report`` (CUDA events on the card), the stages
 of both matcher chains on one random pair:
 
-- the fused chain of ``sgbm_cuda``: Sobel, K1 cost, K2's directional
-  passes into an int32 S, K3 WTA/LR, K4 + K5 speckle;
+- the fused chain, ``sgbm_cuda(fused_wta=False)``: Sobel, K1 cost, K2's
+  directional passes into an int32 S, K3 WTA/LR, K4 + K5 speckle (at its
+  defaults ``sgbm_cuda`` takes the batch sweeps instead, which
+  chip_smoke.py times in turns with this chain);
 - the staged chain of ``sgbm_staged_cuda``: Sobel, the fused cost + down
   kernel, the horizontal and up-going passes into int16 partial sums, the
   three-input WTA/LR, K4 + K5;
@@ -118,8 +120,9 @@ def build_stages(device="cuda", H=720, W=1280, D=128, batch=1, seed=0):
                            lambda fn=fn, x=x: fn(x), 2 * vol))
         stages.append(spec((), f"transpose {name} [permute.contiguous]",
                            lambda lib=lib, x=x: lib(x), 2 * vol))
-    stages.append(spec((), "sgbm_cuda whole",
-                       lambda: sc.sgbm_cuda(left, right, params),
+    stages.append(spec((), "sgbm_cuda whole (fused_wta=False)",
+                       lambda: sc.sgbm_cuda(left, right, params,
+                                            fused_wta=False),
                        36 * px + 82 * el))
     stages.append(spec((), "sgbm_staged_cuda whole",
                        lambda: sc.sgbm_staged_cuda(left, right, params),
