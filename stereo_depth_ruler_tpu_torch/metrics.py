@@ -2,16 +2,16 @@
 device.
 
 Port of ``stereo_depth_ruler_tpu/metrics.py``: ``FrameMetrics``,
-``frame_metrics``, ``MetricsLog`` and ``StageTimer`` are copies of the JAX
-package's (NumPy and the standard library), ``batch_frame_stats`` reduces
-on the device in PyTorch.
+``frame_metrics`` and ``MetricsLog`` are copies of the JAX package's
+(NumPy and the standard library), ``batch_frame_stats`` reduces on the
+device in PyTorch. Stage times come from the pipeline's profiler spans
+(``pipeline.py``), not from a host-clock timer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 __all__ = ["FrameMetrics", "MetricsLog", "frame_metrics",
-           "batch_frame_stats", "StageTimer"]
+           "batch_frame_stats"]
 
 
 @dataclasses.dataclass
@@ -123,33 +123,3 @@ class MetricsLog:
         if maes:
             out["disparity_mae_vs_ref"] = float(np.mean(maes))
         return out
-
-
-class StageTimer:
-    """Per-stage wall-clock tracker (SURVEY.md §5 tracing). Use around
-    device calls with block_until_ready for honest timings."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    def __call__(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                dt = (time.perf_counter() - self.t0) * 1000.0
-                timer.totals[name] = timer.totals.get(name, 0.0) + dt
-                timer.counts[name] = timer.counts.get(name, 0) + 1
-                return False
-
-        return _Ctx()
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {k: {"total_ms": v, "count": self.counts[k],
-                    "mean_ms": v / self.counts[k]}
-                for k, v in self.totals.items()}

@@ -17,16 +17,27 @@ pair modes give bit-identical maps. The JAX package falls back to the
 stacked pair where its kernel's on-chip memory is too small
 (8 * D * W > 2^21); the port has no such limit and runs the shared pair at
 every width. ``lr_mode="fast"`` is the in-matcher LR check.
+
+While a torch profiler records, each ``process_pair`` / ``process_batch``
+call is a ``record_function`` span ``sdr.call`` holding, in order and
+apart, ``sdr.upload``, ``sdr.prep`` (gray, rectify, downscale),
+``sdr.matcher`` (the pair's stacking and split included), ``sdr.wls``
+(with WLS only) and ``sdr.post`` (confidence without WLS, reprojection,
+stats); the profiler's trace then puts each device operation, and each
+idle gap, under the stage whose host code was running. With no profiler
+recording no span is made.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .calib.config import StereoRig
 from .ops.sgbm_ref import SGBMParams
@@ -38,6 +49,14 @@ from .ops.sgbm_cuda import sgbm_cuda, sgbm_pair_cuda
 from .ops.wls_cuda import wls_disparity_filter_cuda
 
 __all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x"]
+
+
+_OFF = contextlib.nullcontext()
+
+
+def _span(name):
+    """A profiler span while a torch profiler records, else nothing."""
+    return record_function(name) if torch.autograd._profiler_enabled() else _OFF
 
 
 def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -133,46 +152,60 @@ class StereoPipeline:
         # upload in the input's own dtype (uint8 frames are a quarter of
         # the float32 bytes) and convert on the device: a CPU->CUDA copy
         # that changes dtype converts on the host first
-        left = left.to(self.device).to(torch.float32)
-        right = right.to(self.device).to(torch.float32)
-        if left.dim() == 4:  # color input
-            left = bgr_to_gray(left)
-            right = bgr_to_gray(right)
-        if self.rectify:
-            left = remap_bilinear(left, self.grid_l, cfg.remap_precision)
-            right = remap_bilinear(right, self.grid_r, cfg.remap_precision)
-        lrect, rrect = left, right
-        for _ in range(self._n_down):
-            left = downscale2x(left)
-            right = downscale2x(right)
-        if cfg.use_wls and cfg.lr_mode == "right_matcher":
-            if cfg.pair_mode == "shared":
-                disp_l, disp_r = sgbm_pair_cuda(left.contiguous(),
-                                                right.contiguous(), cfg.sgbm)
-            else:
-                # the left matcher and the right one (the left matcher on
-                # the mirrored, swapped pair) as one call on 2N frames
-                n = left.shape[0]
-                dd = sgbm_cuda(torch.cat([left, right.flip(-1)]).contiguous(),
-                               torch.cat([right, left.flip(-1)]).contiguous(),
-                               cfg.sgbm)
-                disp_l, disp_r = dd[:n], dd[n:].flip(-1).contiguous()
-            D = cfg.sgbm.num_disparities + cfg.sgbm.min_disparity
-            disp, conf = wls_disparity_filter_cuda(disp_l, disp_r, left,
-                                                   max_disp=D)
+        with _span("sdr.upload"):
+            left = left.to(self.device).to(torch.float32)
+            right = right.to(self.device).to(torch.float32)
+        with _span("sdr.prep"):
+            if left.dim() == 4:  # color input
+                left = bgr_to_gray(left)
+                right = bgr_to_gray(right)
+            if self.rectify:
+                left = remap_bilinear(left, self.grid_l, cfg.remap_precision)
+                right = remap_bilinear(right, self.grid_r,
+                                       cfg.remap_precision)
+            lrect, rrect = left, right
+            for _ in range(self._n_down):
+                left = downscale2x(left)
+                right = downscale2x(right)
+        wls = cfg.use_wls and cfg.lr_mode == "right_matcher"
+        if wls:
+            with _span("sdr.matcher"):
+                if cfg.pair_mode == "shared":
+                    disp_l, disp_r = sgbm_pair_cuda(left.contiguous(),
+                                                    right.contiguous(),
+                                                    cfg.sgbm)
+                else:
+                    # the left matcher and the right one (the left matcher
+                    # on the mirrored, swapped pair) as one call on 2N
+                    # frames
+                    n = left.shape[0]
+                    dd = sgbm_cuda(
+                        torch.cat([left, right.flip(-1)]).contiguous(),
+                        torch.cat([right, left.flip(-1)]).contiguous(),
+                        cfg.sgbm)
+                    disp_l, disp_r = dd[:n], dd[n:].flip(-1).contiguous()
+            with _span("sdr.wls"):
+                D = cfg.sgbm.num_disparities + cfg.sgbm.min_disparity
+                disp, conf = wls_disparity_filter_cuda(disp_l, disp_r, left,
+                                                       max_disp=D)
         else:
-            disp = sgbm_cuda(left.contiguous(), right.contiguous(), cfg.sgbm,
-                             apply_lr=cfg.lr_mode != "none")
-            conf = (disp >= 0).to(torch.float32)
-        xyz = reproject_to_3d(disp, self.rig.Q, scale=1.0 / cfg.downscale,
-                              quirk_compat=cfg.quirk_compat,
-                              handle_missing=cfg.handle_missing,
-                              layout="chw")
-        out = {"disparity": disp, "xyz": xyz, "confidence": conf,
-               "left_rectified": lrect, "right_rectified": rrect}
-        if cfg.with_stats:
-            out["frame_stats"] = batch_frame_stats(
-                disp, xyz[..., 2, :, :], skip_cols=cfg.sgbm.num_disparities)
+            with _span("sdr.matcher"):
+                disp = sgbm_cuda(left.contiguous(), right.contiguous(),
+                                 cfg.sgbm, apply_lr=cfg.lr_mode != "none")
+        with _span("sdr.post"):
+            if not wls:
+                conf = (disp >= 0).to(torch.float32)
+            xyz = reproject_to_3d(disp, self.rig.Q,
+                                  scale=1.0 / cfg.downscale,
+                                  quirk_compat=cfg.quirk_compat,
+                                  handle_missing=cfg.handle_missing,
+                                  layout="chw")
+            out = {"disparity": disp, "xyz": xyz, "confidence": conf,
+                   "left_rectified": lrect, "right_rectified": rrect}
+            if cfg.with_stats:
+                out["frame_stats"] = batch_frame_stats(
+                    disp, xyz[..., 2, :, :],
+                    skip_cols=cfg.sgbm.num_disparities)
         return out
 
     # -- public API --------------------------------------------------------
@@ -185,16 +218,19 @@ class StereoPipeline:
         """One frame pair (H, W[, 3]) -> disparity at matcher resolution,
         xyz (3, H, W) in mm (xyz_hwc gives the (H, W, 3) view), confidence,
         the rectified eyes and, with ``with_stats``, the (3,) stats."""
-        self._check_input_range(left)
-        out = self._forward(torch.as_tensor(left)[None],
-                            torch.as_tensor(right)[None])
-        return {k: v[0] for k, v in out.items()}
+        with _span("sdr.call"):
+            self._check_input_range(left)
+            out = self._forward(torch.as_tensor(left)[None],
+                                torch.as_tensor(right)[None])
+            return {k: v[0] for k, v in out.items()}
 
     def process_batch(self, lefts, rights) -> Dict[str, torch.Tensor]:
         """(N, H, W[, 3]) batches -> the outputs of process_pair, each with
         a leading N."""
-        self._check_input_range(lefts)
-        return self._forward(torch.as_tensor(lefts), torch.as_tensor(rights))
+        with _span("sdr.call"):
+            self._check_input_range(lefts)
+            return self._forward(torch.as_tensor(lefts),
+                                 torch.as_tensor(rights))
 
     def process_sbs(self, frame) -> Dict[str, torch.Tensor]:
         """Side-by-side frame (H, 2W[, 3]) -> split at W, then process."""

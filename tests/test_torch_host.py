@@ -28,7 +28,7 @@ from stereo_depth_ruler_tpu_torch.measure import (MeasurementSession,
                                                   depth_coverage,
                                                   measure_distance)
 from stereo_depth_ruler_tpu_torch.metrics import (FrameMetrics, MetricsLog,
-                                                  StageTimer, frame_metrics)
+                                                  frame_metrics)
 from stereo_depth_ruler_tpu_torch.utils import capture, native
 from stereo_depth_ruler_tpu_torch.viz import (DepthVis, DisparityVis,
                                               draw_epipolar_lines,
@@ -132,12 +132,6 @@ def test_frame_metrics_log_and_timer_match_jax(tmp_path):
     assert log.summary()["frames"] == 2
     lines = (tmp_path / "m.jsonl").read_text().splitlines()
     assert json.loads(lines[0]) == json.loads(jm.to_json())
-    timer = StageTimer()
-    for _ in range(3):
-        with timer("stage"):
-            pass
-    rep = timer.report()["stage"]
-    assert rep["count"] == 3 and rep["total_ms"] >= 0.0
 
 
 def test_measurement_on_synthetic_scene_ground_truth():
