@@ -26,6 +26,14 @@ apart, ``sdr.upload``, ``sdr.prep`` (gray, rectify, downscale),
 stats); the profiler's trace then puts each device operation, and each
 idle gap, under the stage whose host code was running. With no profiler
 recording no span is made.
+
+On a CUDA device ``process_pair`` replays a captured CUDA graph of
+``_forward`` (``_graph_step`` says when): its caller waits for each pair,
+so the host's launches would be on the critical path. A replayed call's
+``sdr.call`` holds ``sdr.upload`` (the copies into the graph's inputs)
+and no stage span: the host runs no stage's code then.
+``process_batch`` stays eager: its callers run a batch ahead, so its
+launches hide behind the previous batch's device work.
 """
 
 from __future__ import annotations
@@ -48,10 +56,33 @@ from .ops.reproject import reproject_to_3d
 from .ops.sgbm_cuda import sgbm_cuda, sgbm_pair_cuda
 from .ops.wls_cuda import wls_disparity_filter_cuda
 
-__all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x"]
+__all__ = ["PipelineConfig", "StereoPipeline", "bgr_to_gray", "downscale2x",
+           "GRAPH_CALLS", "reset_graph_counts"]
 
 
 _OFF = contextlib.nullcontext()
+
+# process_pair calls by how they ran: eagerly, capturing the graph (and
+# replaying it once for the call's own outputs), or replaying it. The ops'
+# LAUNCHES count the eager calls and the captures, not the replays.
+GRAPH_CALLS = {"eager": 0, "captured": 0, "replayed": 0}
+
+
+def reset_graph_counts() -> None:
+    for k in GRAPH_CALLS:
+        GRAPH_CALLS[k] = 0
+
+
+def _graph_step(held, last, sig) -> str:
+    """How ``process_pair`` runs a call whose inputs have the signature
+    ``sig``, given the signature of the held graph (``held``, None for
+    none) and of the previous call (``last``): "replay" the held graph,
+    "capture" a new one in its place (the signature's second call in a
+    row; the first ran eagerly, which built and loaded what the capture
+    needs), or run "eager"."""
+    if sig == held:
+        return "replay"
+    return "capture" if sig == last else "eager"
 
 
 def _span(name):
@@ -126,7 +157,12 @@ class StereoPipeline:
 
     ``grids`` = (left, right) RemapGrid takes the place of the grids built
     from ``rig``, e.g. the JAX package's tables carried across with
-    ``RemapGrid.from_arrays``."""
+    ``RemapGrid.from_arrays``.
+
+    On a CUDA device ``process_pair`` holds at most one captured graph,
+    with its own memory pool, keyed by the shape and dtype of the two
+    inputs alone: the config, the grids and the rig are taken as fixed
+    from construction, so a grid swapped after the capture is not seen."""
 
     def __init__(self, rig: StereoRig, config: PipelineConfig = PipelineConfig(),
                  rectify: bool = True, device="cuda",
@@ -144,6 +180,8 @@ class StereoPipeline:
             self.grid_l, self.grid_r = grids
         else:
             self.grid_l, self.grid_r = build_remap_grids(rig, self.device)
+        self._graph = None      # (signature, graph, inputs, outputs)
+        self._last_sig = None
 
     def _forward(self, left: torch.Tensor, right: torch.Tensor
                  ) -> Dict[str, torch.Tensor]:
@@ -220,9 +258,43 @@ class StereoPipeline:
         the rectified eyes and, with ``with_stats``, the (3,) stats."""
         with _span("sdr.call"):
             self._check_input_range(left)
-            out = self._forward(torch.as_tensor(left)[None],
-                                torch.as_tensor(right)[None])
+            left = torch.as_tensor(left)[None]
+            right = torch.as_tensor(right)[None]
+            if self.device.type == "cuda":
+                out = self._graphed(left, right)
+            else:
+                GRAPH_CALLS["eager"] += 1
+                out = self._forward(left, right)
             return {k: v[0] for k, v in out.items()}
+
+    def _graphed(self, left: torch.Tensor, right: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+        """``_forward`` of a (1, H, W[, 3]) pair run eagerly, or through the
+        held graph as ``_graph_step`` decides. A replay's outputs are
+        clones: the next replay overwrites the graph's own."""
+        sig = (tuple(left.shape), left.dtype, tuple(right.shape), right.dtype)
+        held = self._graph[0] if self._graph else None
+        step = _graph_step(held, self._last_sig, sig)
+        self._last_sig = sig
+        if step == "eager":
+            GRAPH_CALLS["eager"] += 1
+            return self._forward(left, right)
+        if step == "capture":
+            self._graph = None      # the old graph's pool goes first
+            ins = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                    device=self.device)
+                        for t in (left, right))
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                outs = self._forward(*ins)
+            self._graph = (sig, g, ins, outs)
+        GRAPH_CALLS["captured" if step == "capture" else "replayed"] += 1
+        _, g, ins, outs = self._graph
+        with _span("sdr.upload"):
+            ins[0].copy_(left)
+            ins[1].copy_(right)
+        g.replay()
+        return {k: v.clone() for k, v in outs.items()}
 
     def process_batch(self, lefts, rights) -> Dict[str, torch.Tensor]:
         """(N, H, W[, 3]) batches -> the outputs of process_pair, each with

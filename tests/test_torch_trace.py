@@ -105,3 +105,34 @@ def test_no_span_is_made_while_no_profiler_records(monkeypatch):
                                    equal_nan=True, msg=k)
         torch.testing.assert_close(pair[k], traced[k][0], rtol=0, atol=0,
                                    equal_nan=True, msg=k)
+
+
+@pytest.mark.cuda
+def test_a_replayed_call_holds_the_upload_and_one_graph_launch(tmp_path):
+    """On the card the third call with one signature replays the captured
+    graph: its ``sdr.call`` holds ``sdr.upload`` and no stage span, and the
+    runtime launched the graph once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params = SGBMParams(num_disparities=32, speckle_window_size=20)
+    pipe = tp.StereoPipeline(StereoRig.synthetic(width=160, height=96),
+                             tp.PipelineConfig(sgbm=params, downscale=1),
+                             device="cuda")
+    rng = np.random.default_rng(5)
+    left = rng.integers(0, 256, (96, 160), dtype=np.uint8)
+    right = np.roll(left, -5, axis=1)
+    for _ in range(2):                  # eager, then the capture
+        pipe.process_pair(left, right)
+    before = dict(tp.GRAPH_CALLS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.process_pair(left, right)
+        torch.cuda.synchronize()
+    assert tp.GRAPH_CALLS["replayed"] == before["replayed"] + 1
+    _check_calls(_sdr_spans(prof, tmp_path), 1, ["sdr.upload"])
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    launches = [e for e in events if e.get("ph") == "X"
+                and e.get("cat") == "cuda_runtime"
+                and e["name"].startswith("cudaGraphLaunch")]
+    assert len(launches) == 1, [e["name"] for e in events
+                                if e.get("cat") == "cuda_runtime"]
