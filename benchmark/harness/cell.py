@@ -2,6 +2,9 @@
 
 A cell is an entry of BENCHMARK.json's ``workloads``. Everything it needs
 is found by name: the configuration's file (BENCHMARK.json's ``configs``),
+its driver ``drivers/<driver>.py`` (the configuration's ``"driver"``,
+``"pipeline"`` where it names none), which builds the program, calls it,
+fetches and holds its outputs and gives the numbers its check compares,
 ``traffic/<traffic>.json`` and, for every metric the run reports,
 ``metrics/<metric>.py``, whose ``read(run)`` returns the metric's value or
 None where the run has nothing for it to read.
@@ -16,16 +19,16 @@ import subprocess
 import time
 from contextlib import nullcontext
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-import reference
 from harness import check, inputs, trace as tr, traffic
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
+DRIVERS = BENCH / "drivers"
 
 
 @dataclasses.dataclass
@@ -58,14 +61,23 @@ def load(name: str, root: Path = ROOT) -> Cell:
     return Cell(name, int(w["chips"]), config, trf, e2e, per_layer)
 
 
-def reader(metric: str) -> Callable:
-    """``read`` of metrics/<metric>.py."""
-    path = BENCH / "metrics" / f"{metric}.py"
+def _module(path: Path, name: str):
     spec = importlib.util.spec_from_file_location(
-        "metric_" + metric.replace(".", "_").replace("-", "_"), path)
+        name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str) -> Callable:
+    """``read`` of metrics/<metric>.py."""
+    return _module(BENCH / "metrics" / f"{metric}.py", "metric_" + metric).read
+
+
+def driver(name: str):
+    """drivers/<name>.py as a module (drivers/__init__.py says what it
+    gives)."""
+    return _module(DRIVERS / f"{name}.py", "driver_" + name)
 
 
 @dataclasses.dataclass
@@ -81,71 +93,16 @@ class Measured:
     trace: Optional[tr.Trace] = None
 
 
-def make_pipeline(config: dict, rig_m: dict, device):
-    """The system under test: StereoPipeline on the configuration's rig and
-    settings."""
-    from stereo_depth_ruler_tpu_torch.calib.config import StereoRig
-    from stereo_depth_ruler_tpu_torch.ops.sgbm_ref import SGBMParams
-    from stereo_depth_ruler_tpu_torch.pipeline import (PipelineConfig,
-                                                       StereoPipeline)
-    rig = StereoRig(image_size=(rig_m["width"], rig_m["height"]),
-                    camera_matrix_left=rig_m["K1"],
-                    dist_coeffs_left=rig_m["dist1"],
-                    camera_matrix_right=rig_m["K2"],
-                    dist_coeffs_right=rig_m["dist2"], R=rig_m["R"],
-                    T=rig_m["T"], R1=rig_m["R1"], R2=rig_m["R2"],
-                    P1=rig_m["P1"], P2=rig_m["P2"], Q=rig_m["Q"])
-    p = config["sgbm"]
-    params = SGBMParams(min_disparity=p["min_disparity"],
-                        num_disparities=p["num_disparities"],
-                        block_size=p["block_size"], p1=p["p1"], p2=p["p2"],
-                        disp12_max_diff=p["disp12_max_diff"],
-                        pre_filter_cap=p["pre_filter_cap"],
-                        uniqueness_ratio=p["uniqueness_ratio"],
-                        speckle_window_size=p["speckle_window_size"],
-                        speckle_range=p["speckle_range"],
-                        num_paths=p["num_paths"],
-                        quantize_16=p["quantize_16"])
-    return StereoPipeline(rig, PipelineConfig(sgbm=params,
-                                              **config["pipeline"]),
-                          device=device)
-
-
-class _Holder:
-    """Keeps a copy of the outputs of one frame of each checked pair, chosen
-    among the pair's frames in the window by reservoir sampling from the
-    seed. The copies go to buffers allocated before the window (``prepare``)
-    by one device-to-device copy per output, so that holding allocates
-    nothing inside it."""
-
-    def __init__(self, checked, seed: int, batched: bool):
-        self.rng = np.random.default_rng([seed % (1 << 64), 2])
-        self.seen = {int(p): 0 for p in checked}
-        self.batched = batched
-        self.buf: Dict[int, Dict[str, torch.Tensor]] = {}
-        self.held = set()
-
-    def _frame(self, out, k):
-        return {name: (v[k] if self.batched else v)
-                for name, v in out.items() if name != "frame_stats"}
-
-    def prepare(self, out) -> None:
-        for p in self.seen:
-            self.buf[p] = {name: torch.empty_like(v)
-                           for name, v in self._frame(out, 0).items()}
-
-    def offer(self, pairs, out) -> None:
-        for k, p in enumerate(pairs):
-            p = int(p)
-            if p in self.seen:
-                self.seen[p] += 1
-                if self.rng.random() * self.seen[p] < 1.0:
-                    for name, v in self._frame(out, k).items():
-                        self.buf[p][name].copy_(v)
-                    self.held.add(p)
-
-    def frames(self):
-        return [(p, self.buf[p]) for p in sorted(self.held)]
+def _entry_taken(drv, name: str, entry: str, batch: int) -> None:
+    """Raises ValueError unless the driver takes ``entry`` at ``batch``."""
+    sizes = drv.ENTRIES.get(entry, ())
+    if sizes is None or batch in sizes:
+        return
+    took = ", ".join(
+        f"{e} at batch {'any' if b is None else '/'.join(map(str, b))}"
+        for e, b in drv.ENTRIES.items())
+    raise ValueError(f"driver {name!r} takes no entry {entry!r} at batch "
+                     f"{batch}; it takes {took}")
 
 
 def _sync(dev) -> None:
@@ -171,23 +128,24 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
         wrap: Optional[Callable] = None) -> dict:
     """One run: returns the result object, ``checks`` last. ``t_start`` is
     the host clock at the process's start, from which set-up counts.
-    ``wrap(pipeline)``, where given, stands in for the pipeline (tests
+    ``wrap(program)``, where given, stands in for the program (tests
     plant faults with it)."""
     dev = torch.device(device)
     cfg, trf = cell.config, cell.traffic
-    if not (cfg["pipeline"]["use_wls"]
-            and cfg["pipeline"]["lr_mode"] == "right_matcher"):
-        raise ValueError("the reference covers the right matcher + WLS path")
+    drv_name = cfg.get("driver", "pipeline")
+    drv = driver(drv_name)
+    batch = int(trf["batch"])
+    _entry_taken(drv, drv_name, trf["entry"], batch)
     parts = {"import_s": time.perf_counter() - t_start}
     t = time.perf_counter()
     rig_m = inputs.rig(cfg["rig"])
     n_pool = int(trf["pool"])
-    pool_l, pool_r = inputs.pool(rig_m, cfg, n_pool, seed, dev)
+    pool = inputs.pool(rig_m, cfg, n_pool, seed, dev)
     parts["render_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    pipe = make_pipeline(cfg, rig_m, dev)
+    program = drv.build(cfg, rig_m, dev)
     if wrap is not None:
-        pipe = wrap(pipe)
+        program = wrap(program)
     parts["pipeline_s"] = time.perf_counter() - t
     if dev.type == "cuda":
         # a checkout's first run builds the kernels (nvcc): timed apart
@@ -197,39 +155,23 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
             kernels.build()
             parts["build_s"] = time.perf_counter() - t
 
-    batch = int(trf["batch"])
     seq = traffic.order(n_pool, int(trf["distinct"]) * batch, seed)
     used = np.unique(seq)
     checked = np.random.default_rng([seed % (1 << 64), 3]).choice(
         used, min(int(cfg["check_pairs"]), len(used)), replace=False)
-    batched = trf["entry"] == "process_batch"
-    holder = _Holder(checked, seed, batched)
-    if batched:
-        slots = [(np.ascontiguousarray(pool_l[seq[k:k + batch]]),
-                  np.ascontiguousarray(pool_r[seq[k:k + batch]]))
-                 for k in range(0, len(seq), batch)]
-
-        def call_program(slot, pairs):
-            return pipe.process_batch(*slots[slot])
-    elif trf["entry"] == "process_pair" and batch == 1:
-        def call_program(slot, pairs):
-            return pipe.process_pair(pool_l[pairs[0]], pool_r[pairs[0]])
-    else:
-        raise ValueError(f"unknown entry {trf['entry']!r} at batch {batch}")
+    holder = drv.holder(trf["entry"], checked, seed)
+    call_program = drv.call(program, trf["entry"], pool, seq, batch)
 
     def submit(call):
         out = call_program(call.slot, call.pairs)
         holder.offer(call.pairs, out)
         return out
 
-    def fetch(out):
-        return out["frame_stats"].cpu().numpy().reshape(-1, 3)
-
     n_slots = len(seq) // batch
     for i in range(int(trf["warmup"])):
         t = time.perf_counter()
         out = call_program(i % n_slots, seq[(i % n_slots) * batch:][:batch])
-        fetch(out)
+        drv.fetch(out)
         _sync(dev)
         parts[f"warmup{i}_s"] = time.perf_counter() - t
     holder.prepare(out)
@@ -252,7 +194,7 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
             return nullcontext()
     with prof if prof is not None else nullcontext():
         with span("bench.window"):
-            t0, calls = traffic.run(trf, seconds, submit, fetch, seq,
+            t0, calls = traffic.run(trf, seconds, submit, drv.fetch, seq,
                                     span=span)
             _sync(dev)
     peak = int(torch.cuda.max_memory_allocated(dev)) if dev.type == "cuda" \
@@ -270,25 +212,19 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
         f"{np.percentile(lat, 99):.4f} max {lat.max():.4f}")
 
     held = holder.frames()
+    mine = {int(p) for p in checked}
     fetched = [(int(p), c.stats[k]) for c in calls
-               for k, p in enumerate(c.pairs) if int(p) in holder.seen]
-    del pipe, holder, submit, call_program
-    if batched:
-        del slots
+               for k, p in enumerate(c.pairs) if int(p) in mine]
+    del program, holder, submit, call_program
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    pairs = sorted(p for p, _ in held)
-    if not pairs:
+    if not held:
         raise RuntimeError("the window produced no frame of a checked pair")
-    ref_out = reference.run(pool_l[pairs], pool_r[pairs], rig_m, cfg, dev,
-                            block=int(cfg["reference_block"]))
-    ref = {p: {k: v[i] for k, v in ref_out.items()}
-           for i, p in enumerate(pairs)}
-    numbers = check.compare(held, fetched, ref)
+    numbers = drv.compare(held, fetched, pool, rig_m, cfg, dev)
     ok, table = check.judge(numbers, cfg["limits"])
     missing = sum(1 for c in calls if c.stats is None)
-    log(f"reference: {len(pairs)} pairs in {time.perf_counter() - t:.3f} s; "
+    log(f"reference: {len(held)} pairs in {time.perf_counter() - t:.3f} s; "
         f"{len(fetched)} fetched stats compared")
 
     result = {"correct": bool(ok and missing == 0),

@@ -1,7 +1,9 @@
 """The comparison that decides ``correct``: the program's outputs against the
 plain reference's, number by number, each against its limit.
 
-The numbers, each the worst over the checked frames:
+``judge`` holds any driver's numbers against the configuration's
+``limits``. The rest is the stereo pipeline's (drivers/pipeline.py):
+its numbers, each the worst over the checked frames:
 
 - ``rect_gap``: the largest gap of the rectified eyes, in gray levels
   (gray conversion and rectification);
@@ -72,8 +74,15 @@ def stats_gap(got: np.ndarray, want: np.ndarray) -> float:
 
 def judge(numbers: Dict[str, float], limits: Dict[str, float]
           ) -> Tuple[bool, Dict[str, Dict[str, float]]]:
-    """(every number within its limit, {name: {value, limit}})."""
-    table = {k: {"value": numbers[k], "limit": limits[k]} for k in NAMES}
+    """(every number within its limit, {name: {value, limit}} in the
+    limits' order): the numbers a driver gives against the configuration's
+    ``limits``. Both must name the same numbers; a number without a limit,
+    or a limit without a number, raises ValueError naming it."""
+    extra, lacking = set(numbers) - set(limits), set(limits) - set(numbers)
+    if extra or lacking:
+        raise ValueError(f"numbers without a limit: {sorted(extra)}; "
+                         f"limits without a number: {sorted(lacking)}")
+    table = {k: {"value": numbers[k], "limit": v} for k, v in limits.items()}
     return all(v["value"] <= v["limit"] for v in table.values()), table
 
 

@@ -6,6 +6,9 @@ port) wraps each ``process_pair`` / ``process_batch`` call in a
 ``sdr.upload``, ``sdr.prep``, ``sdr.matcher``, ``sdr.wls`` (with WLS only)
 and ``sdr.post``. They are host events of the main thread, on the
 profiler's clock, so ``Trace.host`` holds them beside the runtime calls.
+Every ``sdr.*`` span is read; one that ``LAYER`` does not name (another
+program's stage, such as ``sdr.voxel``) is of the layer named after
+``sdr.`` (``voxel``).
 
 - A device operation belongs to the innermost ``sdr.*`` span open at the
   host start of the runtime call that launched it (the correlation id of
@@ -46,6 +49,12 @@ STAGES = ("sdr.upload", "sdr.prep", "sdr.matcher", "sdr.wls", "sdr.post")
 LAYER = {CALL: "pipeline", "sdr.upload": "pipeline", "sdr.prep": "prep",
          "sdr.matcher": "matcher", "sdr.wls": "wls", "sdr.post": "post"}
 OUTSIDE = None          # the key of host time outside every sdr.call
+
+
+def span_layer(span: str) -> str:
+    """The span's layer: LAYER's entry, else the name after ``sdr.``
+    (``sdr.voxel``'s layer is ``voxel``)."""
+    return LAYER.get(span, span[len("sdr."):])
 
 
 @dataclasses.dataclass
@@ -198,4 +207,4 @@ def idle_ms_per_pair(run, layer: str) -> Optional[float]:
         return None
     idle = request_idle(run.trace, sp)
     return sum(v for k, v in idle.items()
-               if k is not OUTSIDE and LAYER[k] == layer) * 1e-3 / pairs
+               if k is not OUTSIDE and span_layer(k) == layer) * 1e-3 / pairs

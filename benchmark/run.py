@@ -3,13 +3,14 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
 
-from the root of a checkout. The cell, its configuration, traffic and
-metrics are found by name (BENCHMARK.json, benchmark/configs,
-benchmark/traffic, benchmark/metrics). The run renders its inputs from the
-seed, builds the pipeline (stereo_depth_ruler_tpu_torch), warms it up on
-the cell's own shapes, drives it for ``--seconds`` with the cell's
-traffic, then checks a seeded sample of what the window produced against
-the plain reference (benchmark/reference). With ``--trace 0`` it reports
+from the root of a checkout. The cell, its configuration, driver, traffic
+and metrics are found by name (BENCHMARK.json, benchmark/configs,
+benchmark/drivers, benchmark/traffic, benchmark/metrics). The run renders
+its inputs from the seed, has the configuration's driver build the program
+(of stereo_depth_ruler_tpu_torch), warms it up on the cell's own shapes,
+drives it for ``--seconds`` with the cell's traffic, then checks a seeded
+sample of what the window produced against the driver's plain reference
+(benchmark/reference). With ``--trace 0`` it reports
 the cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics
 read from a torch.profiler trace of the window.
 

@@ -4,6 +4,7 @@ place) and a run whose timed path is broken underneath, once for each
 fault the cells can have. Tiny cells on the CPU; on the card the control
 is read at the cells' own size by tools/readings.py."""
 
+import re
 import time
 
 import numpy as np
@@ -88,6 +89,18 @@ def test_a_broken_timed_path_is_not_correct(tiny_cell, name, fault):
     r = cell.run(c, 2 ** 31 + 31, 0.4, False, "cpu", time.perf_counter(),
                  lambda m: None, wrap=lambda p: Broken(p, fault))
     assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("numbers,named", [
+    ({"rect_gap": 0.0}, "limits without a number: ['conf_diff_pct'"),
+    (dict.fromkeys(check.NAMES + ("voxel_gap",), 0.0),
+     "numbers without a limit: ['voxel_gap']")], ids=["missing", "unknown"])
+def test_judge_fails_on_a_number_without_its_limit(numbers, named):
+    limits = dict.fromkeys(check.NAMES, 1.0)
+    with pytest.raises(ValueError, match=re.escape(named)):
+        check.judge(numbers, limits)
+    ok, table = check.judge(dict.fromkeys(check.NAMES, 0.5), limits)
+    assert ok and list(table) == list(check.NAMES)
 
 
 def test_the_stats_check_sees_a_missing_depth():

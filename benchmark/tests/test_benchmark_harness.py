@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from harness import cell, check, inputs, trace as tr, traffic
+from harness import cell, inputs, trace as tr, traffic
 from roofline import peaks, sgbm as r_sgbm, wls as r_wls
 import reference
 
@@ -57,6 +57,26 @@ def test_open_loop_times_from_the_due_time_and_reports_lateness():
     # and its latency counts that wait
     assert calls[6].lateness == pytest.approx(0.15)
     assert calls[6].latency == pytest.approx(0.155)
+
+
+def test_the_generator_sleeps_only_to_its_spin_margin_then_spins():
+    clk = FakeClock()
+    slept = []
+
+    def sleep(s):             # an oversleep shorter than the margin
+        slept.append(s)
+        clk.t += s + 0.006
+
+    def clock():
+        clk.t += 1e-4         # each reading takes a little time
+        return clk.t
+
+    traffic.sleep_until(100.050, clock=clock, sleep=sleep)
+    assert slept == [pytest.approx(0.050 - traffic.SPIN_S, abs=2e-4)]
+    assert 100.050 <= clk.t < 100.051          # on time despite the wake
+    slept.clear()
+    traffic.sleep_until(clk.t + traffic.SPIN_S / 2, clock=clock, sleep=sleep)
+    assert slept == []                         # inside the margin: spins
 
 
 def test_closed_loop_keeps_one_call_ahead_and_counts_the_whole_window():
@@ -241,7 +261,10 @@ def test_every_cell_and_metric_is_found_by_name():
     for c in SPEC["configs"]:
         cfg = json.loads((BENCH.parent / c["file"]).read_text())
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        assert set(cfg["limits"]) == set(check.NAMES)
+    for path in sorted((BENCH / "configs").glob("*.json")):
+        cfg = json.loads(path.read_text())
+        drv = cell.driver(cfg.get("driver", "pipeline"))
+        assert set(cfg["limits"]) == set(drv.NAMES), path.name
 
 
 def test_benchmark_json_entries_have_exactly_their_keys():
@@ -295,7 +318,7 @@ def test_reference_equals_the_programs_plain_path(tiny_cell, name):
     c = tiny_cell(name)
     rig_m = inputs.rig(c.config["rig"])
     lefts, rights = inputs.pool(rig_m, c.config, 2, 7, "cpu")
-    pipe = cell.make_pipeline(c.config, rig_m, "cpu")
+    pipe = cell.driver("pipeline").build(c.config, rig_m, "cpu")
     got = pipe.process_batch(lefts, rights)
     want = reference.run(lefts, rights, rig_m, c.config, "cpu", block=1)
     assert set(want) <= set(got)

@@ -2,6 +2,7 @@
 synthetic traces, a tiny traced run on the CPU, and on the card a traced
 run whose operations fall under the spans that launched them."""
 
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -40,9 +41,9 @@ OPS = [(35, 40, 10, "Memcpy HtoD (Pageable -> Device)"),
        (610, 612, 3, "Memcpy DtoH (Device -> Pageable)")]
 
 
-def live_trace(requests=2, drop=()):
+def live_trace(requests=2, drop=(), spans_=SPANS):
     """``requests`` open-loop requests of 1000 us, 2000 us apart, each with
-    SPANS and OPS; spans named in ``drop`` are left out."""
+    ``spans_`` and OPS; spans named in ``drop`` are left out."""
     ev = [_ev("bench.window", "user_annotation", 0, 2000 * requests)]
     corr = 0
     for i in range(requests):
@@ -50,7 +51,7 @@ def live_trace(requests=2, drop=()):
         ev.append(_ev("bench.request", "user_annotation", base, 1000))
         ev.append(_ev("bench.submit", "user_annotation", base + 10, 490))
         ev.append(_ev("bench.fetch", "user_annotation", base + 600, 390))
-        ev += [_ev(n, "user_annotation", base + a, d) for n, a, d in SPANS
+        ev += [_ev(n, "user_annotation", base + a, d) for n, a, d in spans_
                if n not in drop]
         for host, dev, dur, name in OPS:
             corr += 1
@@ -103,6 +104,22 @@ def test_idle_readings_add_up_to_the_requests_idle_time():
     inside_ms = sum(got.values()) * 2
     assert inside_ms + idle[spans.OUTSIDE] * 1e-3 == pytest.approx(
         request_idle_ms)
+
+
+def test_a_span_without_a_table_entry_is_its_own_layer():
+    """A program's ``sdr.voxel`` span, which LAYER does not name, cut from
+    the end of ``sdr.post``: its idle reads under ``voxel``, post's drops
+    by as much, and the pipeline's other layers read as before."""
+    voxel = [s for s in SPANS if s[0] != "sdr.post"] + [
+        ("sdr.post", 410, 40), ("sdr.voxel", 450, 20)]
+    m, before = _measured(live_trace(spans_=voxel)), _measured(live_trace())
+    assert spans.span_layer("sdr.voxel") == "voxel"
+    assert spans.idle_ms_per_pair(m, "voxel") == pytest.approx(0.010)
+    assert spans.idle_ms_per_pair(m, "post") == pytest.approx(0.0)
+    for layer in ("pipeline", "prep", "matcher", "wls"):
+        assert spans.idle_ms_per_pair(m, layer) == pytest.approx(
+            spans.idle_ms_per_pair(before, layer)), layer
+    assert spans.idle_ms_per_pair(before, "voxel") == 0.0
 
 
 @pytest.mark.parametrize("drop", [("sdr.call",), tuple(n for n, *_ in SPANS)],
@@ -179,6 +196,20 @@ def _traced(c, monkeypatch):
     return r, kept[0]
 
 
+def _graph_launches(t, call_span):
+    """The ``cudaGraphLaunch`` runtime calls inside one ``sdr.call``."""
+    return [o for o in t.host if o.cat in tr.RUNTIME_CATS
+            and o.name.startswith("cudaGraphLaunch")
+            and call_span.ts <= o.ts and o.end <= call_span.end]
+
+
+def _inner_spans(t, call_span):
+    """The names of the ``sdr.*`` spans inside one ``sdr.call``."""
+    return [o.name for o in t.host if o.cat == "user_annotation"
+            and o.name.startswith("sdr.") and o.name != spans.CALL
+            and call_span.ts <= o.ts and o.end <= call_span.end]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["hd720_d128_full.batch8",
                                   "hd720_d128_full.live30"])
@@ -186,7 +217,10 @@ def test_spans_and_launches_share_the_host_clock_on_the_card(
         tiny_cell, monkeypatch, name):
     """Every span metric of the cell reads; the device operations fall
     under the program's spans that launched them (host clock against host
-    clock), every stage launching some; aligned, every operation of a
+    clock). An eager call's stages each launch some. A replayed call (a
+    ``cudaGraphLaunch`` inside its ``sdr.call``, process_pair's captured
+    graph) holds only ``sdr.upload`` and one graph launch, and no stage
+    after the upload launches anything. Aligned, every operation of a
     request lies inside it. The device's raw leads, which need not keep to
     the host clock, are in the message."""
     if not torch.cuda.is_available():
@@ -201,7 +235,21 @@ def test_spans_and_launches_share_the_host_clock_on_the_card(
     leads = spans.launch_leads(t)
     msg = (counts, min(leads), sum(d < 0 for d in leads), len(leads))
     assert len(leads) == len(t.device), msg
-    assert all(counts.get(s, 0) >= len(t.calls) for s in spans.STAGES), msg
+    replayed = [bool(_graph_launches(t, s)) for s in sp.calls]
+    eager = [call for call, g in zip(t.calls, replayed) if not g]
+    eager_counts = {k: len(v) for k, v in spans.ops_by_span(
+        dataclasses.replace(t, calls=eager), sp).items()}
+    assert all(eager_counts.get(s, 0) >= len(eager)
+               for s in spans.STAGES), (eager_counts, msg)
+    for s, g in zip(sp.calls, replayed):
+        if g:
+            assert _inner_spans(t, s) == ["sdr.upload"], msg
+            assert len(_graph_launches(t, s)) == 1, msg
+    graphed = [call for call, g in zip(t.calls, replayed) if g]
+    graph_counts = {k: len(v) for k, v in spans.ops_by_span(
+        dataclasses.replace(t, calls=graphed), sp).items()}
+    assert not any(graph_counts.get(s) for s in spans.STAGES[1:]), (
+        graph_counts, msg)
     assert counts.get(spans.OUTSIDE, 0) <= 0.05 * sum(counts.values()), msg
     for call in t.calls:
         if call.request is not None:
