@@ -380,11 +380,11 @@ def phase_build():
         r"entry function '\w*?\d+(sgm_pass_kernel|sgm_pass_i16_kernel|"
         r"wta_lr_kernel|wta_lr3_kernel)ILi4E(?:Lb([01])E)?"
         r"\w*'[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers", ptxas)
-    # tile_sgm.cu: the sweeps by <words a lane, up>, the horizontal walk by
-    # disparities a lane / 4, the LR pass (K9's and the batch route's)
+    # tile_sgm.cu: the sweeps by <words a lane, plan>, the horizontal walk
+    # by disparities a lane / 4, the LR pass (K9's and the batch route's)
     log("ptxas: tile_sgm " + ", ".join(ptxas_named(
         ptxas, r"(tile_sweep_kernel|tile_horiz_kernel|tile_lr_kernel)"
-        r"(?:I(Li\d+E(?:Lb[01]E)?))?")))
+        r"(?:I(Li\d+E(?:Li\d+E)?))?")))
     log("ptxas: at 4 disparities per lane: " + ", ".join(
         f"{name}{'<acc>' if acc == '1' else ''} {n} registers"
         for name, acc, n in d128))

@@ -46,19 +46,41 @@
 // not by bytes). The strip's C rows (and S_dh rows for the up sweep)
 // arrive in shared memory by cp.async three rows ahead; the L rows live
 // in shared memory (every L stays below 2^15 on a biased route), the
-// diagonals' double-buffered by row parity. In the up sweep the path
-// warps write each row's 8-path sums to shared memory and WTA warps of
-// their own reduce them a row later, which takes the WTA off the paths'
-// chain. The diagonals couple neighbouring strips through their edge
-// columns, exchanged as in cost_down.cu: 64-bit words of a word of two
-// values and its row tag in device memory, a reader spinning on the tags;
-// an edge column publishes the path its neighbour reads first (it needs
-// only the strip's own row before) and reads the neighbour's last, all
-// its words loaded together at the start, so the L2 round trip overlaps
-// the column's work. The launch is cooperative only so that every strip
-// is resident. Where the strips are wider than 10 columns or more than
-// one frame is swept at once, the path warps run the WTA themselves (the
-// launch plan, columns_a_warp and inline_wta below).
+// diagonals' double-buffered by row parity. The diagonals couple
+// neighbouring strips through their edge columns, exchanged as in
+// cost_down.cu: 64-bit words of a word of two values and its row tag in
+// device memory, a reader spinning on the tags; an edge column publishes
+// the path its neighbour reads first (it needs only the strip's own row
+// before) and reads the neighbour's last, all its words loaded together
+// at the start, so the L2 round trip overlaps the column's work. The
+// launch is cooperative only so that every strip is resident.
+//
+// The up sweep's WTA. A pixel's WTA is two warp reductions (the packed
+// key's minimum, the uniqueness test's), two shuffles for S at d* +- 1,
+// then a chain of IEEE float steps, a store and an atomicMin: about as
+// many instructions as the pixel's three path steps. Run whole on the
+// path warps, a pixel a row, it doubled the up sweep's instructions a
+// column-row and put its float chain on every row's path. It is split in
+// two (wta_reduce, wta_tail below): the reductions stay with the pixel;
+// the rest runs for TAIL = 32 rows of a column at once, a lane a row, from
+// (key, vm, vp) kept in shared memory, so the float chain, the store and
+// the scatter cost one warp instruction for 32 pixels and leave the row
+// chain. What bounds the up sweep then is the issue of the path steps and
+// of the reductions (about 1 instruction a cycle a multiprocessor), not
+// bytes. Two launch plans (up_plan below). Inline: the path warps run
+// wta_reduce after their column's paths. The ring: WTA warps of their
+// own, one a column, take each row from the path warps through RING slots
+// of the L rows in shared memory handed over by mbarriers (full: the
+// path warps' row is in its slot; empty: the WTA warps are done with it),
+// so the path warps meet at a barrier of their own (bar.sync 1) and wait
+// on the WTA only where it is RING rows behind. The ring pays where few
+// columns share a multiprocessor (one frame of 720x1280x128: 0.76 against
+// the inline plan's 0.92 ms); from two frames of 10-column strips its WTA
+// warps and their S_dh staging cost more issue than they take off the
+// chain (1.65 against 1.27 ms at 2 frames), so the inline plan runs
+// there. Up / down per launch on the H100 at 720x1280x128: 1.19 at one
+// frame, 1.60 at 2 frames, 1.64 at 16 frames (the WTA whole on the path
+// warps: 1.23, 1.64, 1.66; PERF.md).
 //
 // The horizontal sweep (2). Two warps per body row, one walking x up and
 // one down, each from its end of the row to the middle; a block barrier;
@@ -90,9 +112,10 @@
 // region of its own, so neighbouring strips meet only inside a frame and
 // every block they wait on is resident. G is as many frames as the card
 // holds at once (the launch's occupancy times the multiprocessors over
-// the strips, at most B): per column the up sweep keeps ~4.3 KB of shared
-// memory at D = 128 (staged C and S_dh rows, L rows, int32 sums), so not
-// all of a batch's B * W columns fit at once, and the frames go in waves.
+// the strips, at most B): per column the up sweep keeps ~3.7 KB of shared
+// memory at D = 128 (staged C and S_dh rows, L rows, the WTA tails), so
+// not all of a batch's B * W columns fit at once, and the frames go in
+// waves.
 // A multiprocessor then runs G strips side by side, G times the columns of
 // one frame a launch, which hides the row chain's latency that bounds the
 // one-frame sweeps. The horizontal sweep walks R = B * H rows. A frame
@@ -116,6 +139,7 @@ constexpr int HROWS = 2;              // body rows per horizontal block
 constexpr int HST = 4;                // horizontal chunks staged per walk
 constexpr int HCHB = 2048;            // bytes of C (and of S) in a chunk
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int TAIL = 32;           // rows whose WTA tails run at once
 
 // VPL int16 values at p[d0 ..] (16-bit lanes of 32-bit words; 16-byte
 // aligned rows) into ints, ``fill`` beyond D.
@@ -319,15 +343,22 @@ __device__ __forceinline__ int pick(const int* v, int i) {
 }
 
 
-// The WTA of pixel (y, x) from its path sums S (VPL a lane): wta_lr.cu's
-// body. Writes the disparity before the LR check (-1.0 where invalid)
-// and, with lr, scatters the winner's packed key into the row's d2p.
+// The WTA of a pixel from its path sums S (VPL a lane): wta_lr.cu's body
+// in two parts. wta_reduce runs the warp's reductions over the pixel's D
+// sums: the packed key's minimum (d* and s0), the uniqueness test, and S
+// at d* - 1 and d* + 1, where d* has both neighbours (else S at 0); each
+// comes out warp-uniform, as (key, vm, vp), vm as ~vm where the test fails
+// (S >= 0). wta_tail takes those of one pixel a lane: the IEEE subpixel
+// step, rintf for quantize_16, the partner's column; it writes the
+// disparity before the LR check (-1.0 where invalid) and, with lr,
+// scatters the winner's packed key into the row's d2p. A warp keeps its
+// column's (key, vm, vp) of 32 rows in shared memory (TAIL) and runs their
+// tails at once, a lane a row, so the tail's float chain and stores leave
+// the row-to-row chain. One exact rewrite: the quantize_16 division by 16
+// is a multiplication by 0.0625.
 template <int VPL>
-__device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
-                                          int D, int d0, int lane, int md,
-                                          int uniq, int quant16, int lr,
-                                          int pk_bits, bool mirror,
-                                          float* out, int* d2p) {
+__device__ __forceinline__ int3 wta_reduce(const int* S_in, int D, int d0,
+                                           int uniq, int pk_bits) {
   const int PK = 1 << pk_bits;
   int tot[VPL];
   int key = 0x7fffffff;
@@ -339,7 +370,7 @@ __device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
   key = __reduce_min_sync(FULL, key);
   const int dstar = key & (PK - 1);
   const int s0 = key >> pk_bits;
-  int valid = 1;
+  bool valid = true;
   if (uniq > 0) {
     int mt = BIG;
 #pragma unroll
@@ -348,37 +379,111 @@ __device__ __forceinline__ void wta_pixel(const int* S_in, int x, int y, int W,
       if (d < D && abs(d - dstar) > 1) mt = min(mt, tot[k]);
     }
     mt = __reduce_min_sync(FULL, mt);
-    if (100LL * mt < (long long)(100 + uniq) * s0) valid = 0;
+    if (100LL * mt < (long long)(100 + uniq) * s0) valid = false;
   }
+  const bool inner = dstar > 0 && dstar < D - 1;
+  const int dm = inner ? dstar - 1 : 0, dp = inner ? dstar + 1 : 0;
+  const int vm = __shfl_sync(FULL, pick<VPL>(tot, dm % VPL), dm / VPL);
+  const int vp = __shfl_sync(FULL, pick<VPL>(tot, dp % VPL), dp / VPL);
+  return make_int3(key, valid ? vm : ~vm, vp);
+}
+
+__device__ __forceinline__ void wta_tail(int key, int vme, int vp, int x,
+                                         int y, int W, int D, int md,
+                                         int quant16, int lr, int pk_bits,
+                                         bool mirror, float* out, int* d2p) {
+  const int dstar = key & ((1 << pk_bits) - 1);
+  const int s0 = key >> pk_bits;
+  bool valid = vme >= 0;
   float off = 0.0f;
   if (dstar > 0 && dstar < D - 1) {
-    const int dm = dstar - 1, dp = dstar + 1;
-    const int vm = __shfl_sync(FULL, pick<VPL>(tot, dm % VPL), dm / VPL);
-    const int vp = __shfl_sync(FULL, pick<VPL>(tot, dp % VPL), dp / VPL);
-    const float fs0 = (float)s0, fsm = (float)vm, fsp = (float)vp;
+    const float fs0 = (float)s0, fsm = (float)(valid ? vme : ~vme),
+                fsp = (float)vp;
     const float denom =
         fmaxf(__fsub_rn(__fadd_rn(fsm, fsp), __fmul_rn(2.0f, fs0)), 1e-6f);
     off = __fdiv_rn(__fsub_rn(fsm, fsp), __fmul_rn(2.0f, denom));
     off = fminf(fmaxf(off, -0.5f), 0.5f);
   }
   float disp = __fadd_rn(__fadd_rn((float)dstar, off), (float)md);
-  if (quant16) disp = __fdiv_rn(rintf(__fmul_rn(disp, 16.0f)), 16.0f);
+  if (quant16) disp = __fmul_rn(rintf(__fmul_rn(disp, 16.0f)), 0.0625f);
   // the partner column (mirror: a right matcher's, at x + d)
   const int xr = mirror ? x + dstar + md : x - dstar - md;
-  if (xr < 0 || xr > W - 1) valid = 0;
-  if (lane == 0) {
-    out[(size_t)y * W + x] = valid ? disp : -1.0f;
-    if (lr && xr >= 0 && xr < W) atomicMin(&d2p[(size_t)y * W + xr], key + md);
-  }
+  if (xr < 0 || xr > W - 1) valid = false;
+  out[(size_t)y * W + x] = valid ? disp : -1.0f;
+  if (lr && xr >= 0 && xr < W) atomicMin(&d2p[(size_t)y * W + xr], key + md);
+}
+
+// A pixel's (key, vm, vp) into slot j of its column's TAIL rows in sl
+// ([3][TAIL] ints), by lanes 0-2.
+__device__ __forceinline__ void keep_tail(int* sl, int j, int lane, int3 r) {
+  if (lane < 3) sl[lane * TAIL + j] = lane == 0 ? r.x : lane == 1 ? r.y : r.z;
+}
+
+// The tails of slots 0 .. last of sl, lane j the pixel (y0 - j, x) (the up
+// sweep's rows, a slot a row), where that row is below local.
+__device__ __forceinline__ void run_tails(const int* sl, int last, int lane,
+                                          int x, int y0, int local, int W,
+                                          int D, int md, int quant16, int lr,
+                                          int pk_bits, bool mirror,
+                                          float* out, int* d2p) {
+  __syncwarp();
+  const int y = y0 - lane;
+  if (lane <= last && y < local)
+    wta_tail(sl[lane], sl[TAIL + lane], sl[2 * TAIL + lane], x, y, W, D, md,
+             quant16, lr, pk_bits, mirror, out, d2p);
+  __syncwarp();
+}
+
+// The sweeps' launch plans (the kernel's PLAN): the down sweep; the up
+// sweep with the WTA inline on the path warps; with WTA warps of their own
+// fed through a ring of row slots (RING).
+constexpr int PLAN_DOWN = 0, PLAN_INLINE = 1, PLAN_RING = 2;
+constexpr int RING = 2;   // the ring's row slots: the WTA up to a row behind
+constexpr int SBUF = 3;   // S_dh rows the ring's WTA warps stage: 2 ahead
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
 }
 
 // Shared memory of a sweep block of sw columns: the staged C rows, the up
-// sweep's staged S_dh rows, the vertical L row, the diagonals' L rows (two
-// parities each) and, for WTA warps (sums), the path sums (int32, two
-// parities).
-size_t sweep_smem(int D, bool up, int sw, bool sums) {
-  return (size_t)D * sizeof(int16_t) * sw * (NBUF * (up ? 2 : 1) + 1 + 4) +
-         (sums ? (size_t)D * sizeof(int) * sw * 2 : 0);
+// sweep's staged S_dh rows (the ring: SBUF), the vertical L row and the
+// diagonals' L rows (two parities each; the ring: RING slots each); the up
+// sweep's WTA tails, TAIL rows of (key, vm, vp) a column; the ring's 2 *
+// RING mbarriers, 8-byte aligned.
+size_t sweep_smem(int D, int plan, int sw) {
+  const size_t row = (size_t)D * sizeof(int16_t) * sw;
+  const size_t tails = (size_t)sw * 3 * TAIL * sizeof(int);
+  switch (plan) {
+    case PLAN_DOWN: return row * (NBUF + 1 + 4);
+    case PLAN_INLINE: return row * (2 * NBUF + 1 + 4) + tails;
+    default:
+      return row * (NBUF + SBUF + 3 * RING) + tails + 8 +
+             2 * RING * sizeof(long long);
+  }
 }
 
 // One sweep over n rows of a strip of sw columns per block, in each of nfr
@@ -391,10 +496,15 @@ size_t sweep_smem(int D, bool up, int sw, bool sums) {
 //
 // NW path warps each take a column's three paths at a time (dir 0 from
 // column x, 1 from x - 1, 2 from x + 1) on words of two disparities, 2 *
-// NWD a lane. The up sweep's path warps write each row's sums S = S_dh +
-// bias + L_up to shared memory, and WTA warps of their own reduce them a
-// step later, so the WTA is off the path warps' chain; with INL (no WTA
-// warps) the path warps run the WTA on the sums in registers.
+// NWD a lane; the warps after them are WTA warps. PLAN_INLINE: the path
+// warps run wta_reduce on the sums in registers. PLAN_RING: the path warps
+// only write the L rows, into slot q % RING of a ring (q counts the
+// block's rows over its frames), meet at a barrier of their own (bar.sync
+// 1) and hand each row on by an mbarrier (full); the WTA warps stage their
+// own columns' S_dh rows, build S = S_dh + bias + L_up from the slot and
+// hand it back (empty), so a path warp waits on the WTA only where it is
+// RING rows behind. Either keeps each column's WTA tails in shared memory
+// and runs them every TAIL rows.
 //
 // Strips exchange their edge columns' diagonal paths: edge: zeroed,
 // (frames, strips, 4 slots, 2 sides, D / 2) 64-bit words of a word and its
@@ -407,22 +517,29 @@ size_t sweep_smem(int D, bool up, int sw, bool sums) {
 // neighbour's step q - 2, so the neighbour has read the strip's steps up
 // to q - 4: four slots never collide. Each frame has its own words, so a
 // tag never meets a word of another frame.
-template <int NWD, bool UP, bool INL>
+template <int NWD, int PLAN>
 __global__ void __launch_bounds__(768) tile_sweep_kernel(
     const int16_t* __restrict__ C, int16_t* __restrict__ S,
     float* __restrict__ out, int* __restrict__ d2p, unsigned long long* edge,
     int nfr, int n, int W, int D, int top, int local, int bias, int P1,
     int P2, int ndir, int strips, int sw, int md, int uniq, int quant16,
     int lr, int pk_bits, int mirror_from, int NW) {
+  constexpr bool UP = PLAN != PLAN_DOWN, RG = PLAN == PLAN_RING;
   constexpr int VPL = 2 * NWD;                       // disparities a lane
+  constexpr int SB = RG ? SBUF : UP ? NBUF : 0;      // staged S_dh rows
+  constexpr int VS = RG ? RING : 1, LS = RG ? RING : 2;   // L row slots
   extern __shared__ __align__(16) unsigned char smem[];
   const int SD = sw * D;
   int16_t* cbuf = (int16_t*)smem;                    // [NBUF][sw][D]
-  int16_t* sbuf = cbuf + NBUF * SD;                  // up: [NBUF][sw][D]
-  int16_t* Lv = sbuf + (UP ? NBUF * SD : 0);         // [sw][D]
-  int16_t* L1 = Lv + SD;                             // [2][sw][D]
-  int16_t* L2 = L1 + 2 * SD;                         // [2][sw][D]
-  int* sS = (int*)(L2 + 2 * SD);                     // up: [2][sw][D]
+  int16_t* sbuf = cbuf + NBUF * SD;                  // up: [SB][sw][D]
+  int16_t* Lv = sbuf + SB * SD;                      // [VS][sw][D]
+  int16_t* L1 = Lv + VS * SD;                        // [LS][sw][D]
+  int16_t* L2 = L1 + LS * SD;                        // [LS][sw][D]
+  // up: [sw][3][TAIL], the WTA tails of each column's rows
+  int* tails = (int*)(L2 + LS * SD);
+  // ring: full[RING], then empty[RING], 8-byte aligned
+  const unsigned full = (smem_addr(tails + sw * 3 * TAIL) + 7) & ~7u,
+                 empty = full + 8 * RING;
   const int s = blockIdx.x, x0 = s * sw;
   const int ncol = min(sw, W - x0);
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -435,24 +552,105 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
   const size_t rowel = (size_t)W * D;
   const int nchunk = ncol * D / 8;   // 16-byte chunks of the strip's row
   const unsigned p1 = (unsigned)P1 * 0x10001u;
+  // the threads that stage C rows and meet at each row's barrier
+  const int npt = RG ? 32 * NW : nth;
+  auto sync_rows = [&]() {
+    if constexpr (RG)
+      asm volatile("bar.sync 1, %0;" ::"r"(npt) : "memory");
+    else
+      __syncthreads();
+  };
 
-  for (int f = blockIdx.y; f < nfr; f += gridDim.y) {
+  if constexpr (RG) {
+    if (tid == 0) {
+      for (int k = 0; k < RING; ++k) {
+        mbar_init(full + 8 * k, NW);
+        mbar_init(empty + 8 * k, NWT);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (warp >= NW) {
+      // the ring's WTA warps: warp w takes columns w, w + NWT, ... of each
+      // row, its own columns' S_dh rows staged SBUF - 1 ahead
+      const int w = warp - NW;
+      for (int f = blockIdx.y, fi = 0; f < nfr; f += gridDim.y, ++fi) {
+        const int16_t* Sf = S + (size_t)f * n * rowel + (size_t)x0 * D;
+        const size_t of = (size_t)f * local * W;
+        const bool mirror = f >= mirror_from;
+        auto stage_s = [&](int u) {
+          if (u < n) {
+            const int16_t* g = Sf + (size_t)(n - 1 - u) * rowel;
+            int16_t* sb = sbuf + (u % SBUF) * SD;
+            for (int xl = w; xl < ncol; xl += NWT)
+              for (int i = lane; i < D / 8; i += 32)
+                cp_async16(sb + xl * D + 8 * i, g + xl * D + 8 * i);
+          }
+          cp_async_commit();
+        };
+#pragma unroll
+        for (int u = 0; u < SBUF - 1; ++u) stage_s(u);
+        for (int u = 0; u < n; ++u) {
+          cp_async_wait<SBUF - 2>();
+          __syncwarp();
+          stage_s(u + SBUF - 1);
+          const int q = fi * n + u, k = q % RING, y = n - 1 - u;
+          mbar_wait(full + 8 * k, (q / RING) & 1);
+          if (y < local)
+            for (int xl = w; xl < ncol; xl += NWT) {
+              int sv[VPL];   // S = S_dh + bias + L_up
+              ld16<VPL>(sbuf + (u % SBUF) * SD + xl * D, d0, D, 0, sv);
+              unsigned tw[NWD] = {};   // L_up, below 2^16 in each half
+              if (act) {
+                const int o = k * SD + xl * D + d0;
+                ldw<NWD>(Lv + o, tw);
+                if (ndir == 3) {
+                  unsigned a[NWD], b[NWD];
+                  ldw<NWD>(L1 + o, a);
+                  ldw<NWD>(L2 + o, b);
+#pragma unroll
+                  for (int j = 0; j < NWD; ++j) tw[j] += a[j] + b[j];
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < NWD; ++j) {
+                sv[2 * j] += (int)(tw[j] & 0xffffu) + bias;
+                sv[2 * j + 1] += (int)(tw[j] >> 16) + bias;
+              }
+              int* sl = tails + xl * 3 * TAIL;
+              keep_tail(sl, u % TAIL, lane,
+                        wta_reduce<VPL>(sv, D, d0, uniq, pk_bits));
+              if (u % TAIL == TAIL - 1 || u == n - 1)
+                run_tails(sl, u % TAIL, lane, x0 + xl, y + u % TAIL, local,
+                          W, D, md, quant16, lr, pk_bits, mirror, out + of,
+                          d2p + of);
+            }
+          // the slot's reads are done: hand it back
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + 8 * k);
+        }
+      }
+      return;
+    }
+  }
+
+  for (int f = blockIdx.y, fi = 0; f < nfr; f += gridDim.y, ++fi) {
     const int16_t* Cf = C + (size_t)f * n * rowel;
     int16_t* Sf = S + (size_t)f * (UP ? n : n - top) * rowel;
     const size_t of = (size_t)f * local * W;   // the frame's out and d2p
     unsigned long long* edgef = edge + (size_t)f * strips * 8 * ED;
     const bool mirror = f >= mirror_from;
     // the frame before is done with every buffer
-    __syncthreads();
+    sync_rows();
 
     auto stage = [&](int t) {
       if (t < n) {
         const int y = UP ? n - 1 - t : t;
         const size_t g = (size_t)y * rowel + (size_t)x0 * D;
         int16_t* cb = cbuf + (t % NBUF) * SD;
-        for (int i = tid; i < nchunk; i += nth)
+        for (int i = tid; i < nchunk; i += npt)
           cp_async16(cb + 8 * i, Cf + g + 8 * i);
-        if (UP) {
+        if (UP && !RG) {
           int16_t* sb = sbuf + (t % NBUF) * SD;
           for (int i = tid; i < nchunk; i += nth)
             cp_async16(sb + 8 * i, Sf + g + 8 * i);
@@ -463,26 +661,22 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
 #pragma unroll
     for (int t = 0; t < NBUF - 1; ++t) stage(t);
 
-    for (int t = 0; t < n + (UP ? 1 : 0); ++t) {
+    for (int t = 0; t < n; ++t) {
       cp_async_wait<NBUF - 2>();
-      __syncthreads();
+      sync_rows();
       stage(t + NBUF - 1);
-      if (warp >= NW) {
-        // the WTA of the step before, from its path sums in sS
-        const int yw = n - t;
-        if (t > 0 && yw < local)
-          for (int xl = warp - NW; xl < ncol; xl += NWT)
-            wta_pixel<VPL>(sS + ((t - 1) & 1) * SD + xl * D + d0, x0 + xl,
-                           yw, W, D, d0, lane, md, uniq, quant16, lr,
-                           pk_bits, mirror, out + of, d2p + of);
-        continue;
-      }
-      if (t == n) break;
       const int y = UP ? n - 1 - t : t;
       const int16_t* cb = cbuf + (t % NBUF) * SD;
-      const int par = t & 1, slot = t % 4, pslot = (t + 3) % 4;
+      // the L rows' slots: this row's (par) and the row before's (prv)
+      const int q = fi * n + t;
+      const int par = RG ? q % RING : t & 1;
+      const int prv = RG ? (q + RING - 1) % RING : par ^ 1;
+      const int vs = RG ? par : 0, vp = RG ? prv : 0;
+      const int slot = t % 4, pslot = (t + 3) % 4;
       const unsigned tag_in = (unsigned)t, tag_out = (unsigned)t + 1;
       const bool emit = UP ? y < local : y >= top;
+      // ring: the WTA warps are done with the slot's row before
+      if constexpr (RG) mbar_wait(empty + 8 * par, ((q / RING) & 1) ^ 1);
       for (int xl = warp; xl < ncol; xl += NW) {
         const int x = x0 + xl;
         unsigned cw[NWD], Lu[NWD], La[NWD], Lb[NWD];   // dirs 0, 1, 2
@@ -516,12 +710,12 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
 #pragma unroll
             for (int j = 0; j < NWD; ++j) pw[j] = BIG2;
           } else if (dir == 0) {
-            ldw<NWD>(Lv + xl * D + d0, pw);
+            ldw<NWD>(Lv + vp * SD + xl * D + d0, pw);
           } else if ((dir == 1 && xl == 0) || (dir == 2 && xl == ncol - 1)) {
             get_edge<NWD>(ep, ew, pw, tag_in);
           } else {
-            ldw<NWD>((dir == 1 ? L1 + (par ^ 1) * SD + (xl - 1) * D
-                               : L2 + (par ^ 1) * SD + (xl + 1) * D) + d0,
+            ldw<NWD>((dir == 1 ? L1 + prv * SD + (xl - 1) * D
+                               : L2 + prv * SD + (xl + 1) * D) + d0,
                      pw);
           }
           dp_step2<NWD>(pw, cw, p1, P2, lane, act, L);
@@ -546,10 +740,19 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
           path(1, La);
           path(2, Lb);
         }
-        if constexpr (!INL) {
+        if constexpr (PLAN != PLAN_INLINE) {
           // the rest touches no other lane: lanes beyond D skip it
           if (!act) continue;
-          stw<NWD>(Lv + xl * D + d0, Lu);
+          stw<NWD>(Lv + vs * SD + xl * D + d0, Lu);
+          if constexpr (RG) {
+            // the ring's WTA warps sum the L rows themselves
+            if (ndir == 3) {
+              stw<NWD>(L1 + par * SD + xl * D + d0, La);
+              stw<NWD>(L2 + par * SD + xl * D + d0, Lb);
+            }
+            continue;
+          }
+          // the down sweep: S_dh = L_down - bias
           unsigned tw[NWD];   // the sum, below 2^16 in each half
 #pragma unroll
           for (int j = 0; j < NWD; ++j) tw[j] = Lu[j];
@@ -566,19 +769,10 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
             tot[2 * j] = (int)(tw[j] & 0xffffu);
             tot[2 * j + 1] = (int)(tw[j] >> 16);
           }
-          if (!UP) {
 #pragma unroll
-            for (int k = 0; k < VPL; ++k) tot[k] -= bias;
-            st16<VPL>(Sf + (size_t)(y - top) * rowel + (size_t)x * D, d0, D,
-                      tot);
-            continue;
-          }
-          // S = S_dh + bias + L_up for the WTA warps
-          int sd[VPL];
-          ld16<VPL>(sbuf + (t % NBUF) * SD + xl * D, d0, D, 0, sd);
-          int* sr = sS + par * SD + xl * D + d0;
-#pragma unroll
-          for (int k = 0; k < VPL; ++k) sr[k] = tot[k] + sd[k] + bias;
+          for (int k = 0; k < VPL; ++k) tot[k] -= bias;
+          st16<VPL>(Sf + (size_t)(y - top) * rowel + (size_t)x * D, d0, D,
+                    tot);
         } else {
           // the up sweep's WTA here, on every lane: lanes beyond D skip
           // only the stores
@@ -602,9 +796,18 @@ __global__ void __launch_bounds__(768) tile_sweep_kernel(
             sv[2 * j] += (int)(tw[j] & 0xffffu) + bias;
             sv[2 * j + 1] += (int)(tw[j] >> 16) + bias;
           }
-          wta_pixel<VPL>(sv, x, y, W, D, d0, lane, md, uniq, quant16, lr,
-                         pk_bits, mirror, out + of, d2p + of);
+          int* sl = tails + xl * 3 * TAIL;
+          keep_tail(sl, t % TAIL, lane,
+                    wta_reduce<VPL>(sv, D, d0, uniq, pk_bits));
+          if (t % TAIL == TAIL - 1 || t == n - 1)
+            run_tails(sl, t % TAIL, lane, x, y + t % TAIL, local, W, D, md,
+                      quant16, lr, pk_bits, mirror, out + of, d2p + of);
         }
+      }
+      if constexpr (RG) {
+        // the row's L is in its slot: hand it to the WTA warps
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full + 8 * par);
       }
     }
   }
@@ -738,91 +941,146 @@ cudaError_t strip_plan(int W, int* sms, int* sw, int* strips) {
 }
 
 // The sweeps' launch plan, one for the batch route and K9's slabs, from
-// the frames at once and the strip width. Columns a path warp: two with 4
-// frames or more (the up sweep at D <= 128), else one. The up sweep's WTA:
-// on WTA warps of its own a row behind the path warps for one frame of
-// narrow strips, else on the path warps (no int32 sums in shared memory).
+// the frames at once, the strip width and the occupancy the card reports.
+// Columns a path warp: two with 4 frames or more (the up sweep at D <=
+// 128), else one. The up sweep's WTA (up_plan): through the ring where at
+// most 10 columns share a multiprocessor (the frames at once times the
+// strip width) or one frame is swept, else inline on the path warps.
 // tools/agg_route_ab.py --plans times every choice at each side of these
 // thresholds on the card (PERF.md).
 int columns_a_warp(bool up, int nwd, int nfr) {
   return nfr >= 4 && (!up || nwd <= 2) ? 2 : 1;
 }
 
-bool inline_wta(int nfr, int sw) { return !(nfr == 1 && sw <= 10); }
+int up_plan(int nfr, int sw) {
+  return nfr == 1 || nfr * sw <= 10 ? PLAN_RING : PLAN_INLINE;
+}
 
-template <int NWD, bool UP, bool INL>
-cudaError_t launch_sweep(const int16_t* C, int16_t* S, float* out, int* d2p,
-                         unsigned long long* edge, int nfr, int n, int W,
-                         int D, int top, int local, int bias, int P1, int P2,
-                         int ndir, int md, int uniq, int quant16, int lr,
-                         int pk_bits, int mirror_from, cudaStream_t stream) {
-  int dev = 0, sms = 0, coop = 0, max_smem = 0, sw = 0, strips = 0;
+// A sweep's launch: its plan, path and WTA warps, threads, shared memory,
+// blocks resident on a multiprocessor, frame slots and waves (0: it does
+// not launch), and its strips (sw columns each).
+struct SweepPlan {
+  int plan, nw, nwt, threads, per_sm, slots, waves;
+  size_t smem;
+  int sw, strips;
+};
+
+struct Strips {
+  int nfr, D, sw, strips, sms, max_smem;
+};
+
+template <int NWD, int PLAN>
+cudaError_t fit(const Strips& g, int nw, int nwt, SweepPlan* p) {
+  auto kern = tile_sweep_kernel<NWD, PLAN>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.max_smem);
+  if (e != cudaSuccess) return e;
+  *p = SweepPlan{PLAN, nw, nwt, 32 * (nw + nwt), 0, 0, 0,
+                 sweep_smem(g.D, PLAN, g.sw), g.sw, g.strips};
+  if (p->smem > (size_t)g.max_smem) return cudaSuccess;
+  // as many frames at once as stay resident beside each other
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->per_sm, kern,
+                                                    p->threads, p->smem);
+  if (e != cudaSuccess) return e;
+  const int slots = min(g.nfr, p->per_sm * g.sms / g.strips);
+  if (slots < 1) return cudaSuccess;
+  // the frames in waves of equal size
+  p->waves = (g.nfr + slots - 1) / slots;
+  p->slots = (g.nfr + p->waves - 1) / p->waves;
+  return cudaSuccess;
+}
+
+// The plan of a sweep over nfr frames W wide: the up sweep's from up_plan,
+// or the one given (force: PLAN_INLINE or PLAN_RING, the ring then kept
+// where it takes more waves).
+template <int NWD>
+cudaError_t plan_sweep(bool up, int force, int nfr, int W, int D,
+                       SweepPlan* p) {
+  Strips g{nfr, D, 0, 0, 0, 0};
+  int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
+  cudaDeviceGetAttribute(&g.max_smem,
+                         cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (!coop) return cudaErrorNotSupported;
-  e = strip_plan(W, &sms, &sw, &strips);
+  e = strip_plan(W, &g.sms, &g.sw, &g.strips);
   if (e != cudaSuccess) return e;
-  auto kern = tile_sweep_kernel<NWD, UP, INL>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           max_smem);
-  if (e != cudaSuccess) return e;
-  // path warps of columns_a_warp columns each (16 columns at once at
-  // most); the up sweep's WTA on warps of its own (a column each up to 10
-  // columns, else two) or, inline, on the path warps
-  const int nc = min(sw, 16), cw = columns_a_warp(UP, NWD, nfr);
-  int nw = (nc + cw - 1) / cw;   // not const: a kernel argument
-  const int nwt = INL || !UP ? 0 : nc <= 10 ? nc : (nc + 1) / 2;
-  const int threads = 32 * (nw + nwt);
-  const size_t smem = sweep_smem(D, UP, sw, nwt > 0);
-  if (smem > (size_t)max_smem) return cudaErrorInvalidConfiguration;
-  // as many frames at once as stay resident beside each other
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  int slots = min(nfr, per_sm * sms / strips);
-  if (slots < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // the frames in waves of equal size
-  const int waves = (nfr + slots - 1) / slots;
-  slots = (nfr + waves - 1) / waves;
+  // path warps of columns_a_warp columns each (16 columns at once at most)
+  const int nc = min(g.sw, 16), cw = columns_a_warp(up, NWD, nfr);
+  const int nw = (nc + cw - 1) / cw;
+  if (!up) return fit<NWD, PLAN_DOWN>(g, nw, 0, p);
+  const int plan = force ? force : up_plan(nfr, g.sw);
+  e = fit<NWD, PLAN_INLINE>(g, nw, 0, p);
+  if (e != cudaSuccess || plan == PLAN_INLINE) return e;
+  // the ring: a WTA warp a column, fewer where more would put the frames
+  // in more waves than the inline plan, which runs where even one would
+  const int waves = p->waves;
+  for (int nwt = min(nc, 24 - nw); nwt >= 1; --nwt) {   // 768 threads
+    SweepPlan r{};
+    e = fit<NWD, PLAN_RING>(g, nw, nwt, &r);
+    if (e != cudaSuccess) return e;
+    if ((r.waves > 0 && (waves == 0 || r.waves <= waves)) ||
+        (force && nwt == 1)) {
+      *p = r;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <int NWD, int PLAN>
+cudaError_t launch_sweep(const SweepPlan& p, const int16_t* C, int16_t* S,
+                         float* out, int* d2p, unsigned long long* edge,
+                         int nfr, int n, int W, int D, int top, int local,
+                         int bias, int P1, int P2, int ndir, int md,
+                         int uniq, int quant16, int lr, int pk_bits,
+                         int mirror_from, cudaStream_t stream) {
+  int nw = p.nw, sw = p.sw, strips = p.strips;   // kernel arguments
   void* args[] = {(void*)&C, (void*)&S, (void*)&out, (void*)&d2p,
                   (void*)&edge, &nfr, &n, &W, &D, &top, &local, &bias, &P1,
                   &P2, &ndir, &strips, &sw, &md, &uniq, &quant16, &lr,
                   &pk_bits, &mirror_from, &nw};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(strips, slots),
-                                  dim3(threads), args, smem, stream);
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (void*)tile_sweep_kernel<NWD, PLAN>, dim3(strips, p.slots),
+      dim3(p.threads), args, p.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// One sweep: down, or up with the WTA (the plan launched into *plan).
 template <bool UP>
 cudaError_t sweep_vpl(const int16_t* C, int16_t* S, float* out, int* d2p,
                       unsigned long long* edge, int nfr, int n, int W, int D,
                       int top, int local, int bias, int P1, int P2, int ndir,
                       int md, int uniq, int quant16, int lr, int pk_bits,
-                      int mirror_from, cudaStream_t s) {
-  int sms = 0, sw = 0, strips = 0;
-  const cudaError_t e = strip_plan(W, &sms, &sw, &strips);
-  if (e != cudaSuccess) return e;
-  const bool inl = UP && inline_wta(nfr, sw);
+                      int mirror_from, int* plan, cudaStream_t s) {
+  SweepPlan p{};
   // words of two disparities a lane: D <= 64 in 1, <= 128 in 2, else 4
-#define SDR_SWEEP(NWD, INL)                                                  \
-  launch_sweep<NWD, UP, INL>(C, S, out, d2p, edge, nfr, n, W, D, top, local, \
-                             bias, P1, P2, ndir, md, uniq, quant16, lr,      \
-                             pk_bits, mirror_from, s)
-  if constexpr (UP) {
-    if (inl) {
-      if (D <= 64) return SDR_SWEEP(1, true);
-      if (D <= 128) return SDR_SWEEP(2, true);
-      return SDR_SWEEP(4, true);
-    }
+  const cudaError_t e = D <= 64    ? plan_sweep<1>(UP, 0, nfr, W, D, &p)
+                        : D <= 128 ? plan_sweep<2>(UP, 0, nfr, W, D, &p)
+                                   : plan_sweep<4>(UP, 0, nfr, W, D, &p);
+  if (e != cudaSuccess) return e;
+  // no block fits a multiprocessor (shared memory past the card's), or
+  // not one frame's strips fit the card at once
+  if (p.waves == 0)
+    return p.per_sm == 0 ? cudaErrorInvalidConfiguration
+                         : cudaErrorCooperativeLaunchTooLarge;
+  if (plan) *plan = p.plan;
+#define SDR_SWEEP(NWD, PLAN)                                                \
+  launch_sweep<NWD, PLAN>(p, C, S, out, d2p, edge, nfr, n, W, D, top,       \
+                          local, bias, P1, P2, ndir, md, uniq, quant16, lr, \
+                          pk_bits, mirror_from, s)
+#define SDR_PLANS(NWD)                                                      \
+  switch (p.plan) {                                                         \
+    case PLAN_DOWN: return SDR_SWEEP(NWD, PLAN_DOWN);                       \
+    case PLAN_INLINE: return SDR_SWEEP(NWD, PLAN_INLINE);                   \
+    default: return SDR_SWEEP(NWD, PLAN_RING);                              \
   }
-  if (D <= 64) return SDR_SWEEP(1, false);
-  if (D <= 128) return SDR_SWEEP(2, false);
-  return SDR_SWEEP(4, false);
+  if (D <= 64) SDR_PLANS(1)
+  if (D <= 128) SDR_PLANS(2)
+  SDR_PLANS(4)
+#undef SDR_PLANS
 #undef SDR_SWEEP
 }
 
@@ -864,7 +1122,8 @@ cudaError_t horiz(const int16_t* C, int16_t* S, int R, int W, int D, int P1,
 cudaError_t up_wta(const int16_t* C, const int16_t* S, float* out, int* d2p,
                    int16_t* scratch, int nfr, int R, int W, int D, int local,
                    int bias, int P1, int P2, int ndir, int md, int uniq,
-                   int quant16, int lr, int mirror_from, cudaStream_t s) {
+                   int quant16, int lr, int mirror_from, int* plan,
+                   cudaStream_t s) {
   if (lr) {
     const cudaError_t e = cudaMemsetAsync(
         d2p, 0x7f, sizeof(int) * (size_t)nfr * local * W, s);
@@ -873,7 +1132,7 @@ cudaError_t up_wta(const int16_t* C, const int16_t* S, float* out, int* d2p,
   return sweep_vpl<true>(C, (int16_t*)S, out, d2p,
                          (unsigned long long*)scratch, nfr, R, W, D, 0, local,
                          bias, P1, P2, ndir, md, uniq, quant16, lr,
-                         pack_bits(D, md), mirror_from, s);
+                         pack_bits(D, md), mirror_from, plan, s);
 }
 
 cudaError_t lr_pass(float* out, const int* d2p, int nfr, int local, int W,
@@ -899,7 +1158,7 @@ extern "C" int sdr_tile_down(const int16_t* C, int16_t* S, int16_t* scratch,
   return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
                                (unsigned long long*)scratch, 1, M, W, D, top,
                                0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, 1,
-                               (cudaStream_t)stream);
+                               nullptr, (cudaStream_t)stream);
 }
 
 // C, S: (R, W, D) int16 body rows of the slab and S_dh; both horizontal
@@ -913,17 +1172,18 @@ extern "C" int sdr_tile_horiz(const int16_t* C, int16_t* S, int R, int W,
 // C, S: (R, W, D) int16 body rows and S_dh; out: (local, W) float32, the
 // disparity before the LR check (-1.0 where invalid); d2p: (local, W)
 // int32, the per-row winner scatter, written when lr (set to "no winner"
-// here first). scratch as sdr_tile_down's. md >= 0.
+// here first). scratch as sdr_tile_down's. md >= 0. *plan: the launch
+// plan that ran (PLAN_INLINE or PLAN_RING).
 extern "C" int sdr_tile_up_wta(const int16_t* C, const int16_t* S, float* out,
                                int* d2p, int16_t* scratch, int R, int W,
                                int D, int local, int bias, int P1, int P2,
                                int ndir, int md, int uniq, int quant16,
-                               int lr, void* stream) {
+                               int lr, int* plan, void* stream) {
   if (bad_args(W, D, P1, P2, ndir) || R < 1 || local < 1 || local > R ||
       md < 0)
     return (int)cudaErrorInvalidValue;
   return (int)up_wta(C, S, out, d2p, scratch, 1, R, W, D, local, bias, P1,
-                     P2, ndir, md, uniq, quant16, lr, 1,
+                     P2, ndir, md, uniq, quant16, lr, 1, plan,
                      (cudaStream_t)stream);
 }
 
@@ -957,24 +1217,46 @@ extern "C" int sdr_agg_down(const int16_t* C, int16_t* S, int16_t* scratch,
   return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
                                (unsigned long long*)scratch, B, H, W, D, 0,
                                0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, B,
-                               (cudaStream_t)stream);
+                               nullptr, (cudaStream_t)stream);
 }
 
 // C, S: (B, H, W, D) int16 cost volume and S_dh; out: (B, H, W) float32,
 // the disparity before the LR check (-1.0 where invalid); d2p: (B, H, W)
 // int32 winner scatter, written when lr. Frames b >= mirror_from in mirror
-// mode. scratch as sdr_agg_down's. md >= 0.
+// mode. scratch as sdr_agg_down's. md >= 0. *plan as sdr_tile_up_wta's.
 extern "C" int sdr_agg_up_wta(const int16_t* C, const int16_t* S, float* out,
                               int* d2p, int16_t* scratch, int B, int H,
                               int W, int D, int bias, int P1, int P2,
                               int ndir, int md, int uniq, int quant16,
-                              int lr, int mirror_from, void* stream) {
+                              int lr, int mirror_from, int* plan,
+                              void* stream) {
   if (bad_args(W, D, P1, P2, ndir) || B < 1 || H < 1 || md < 0 ||
       mirror_from < 0 || mirror_from > B)
     return (int)cudaErrorInvalidValue;
   return (int)up_wta(C, S, out, d2p, scratch, B, H, W, D, H, bias, P1, P2,
-                     ndir, md, uniq, quant16, lr, mirror_from,
+                     ndir, md, uniq, quant16, lr, mirror_from, plan,
                      (cudaStream_t)stream);
+}
+
+// The launch plan of a sweep over B frames W x D (up: the up sweep with
+// the WTA; plan 0 the one its launch takes, else PLAN_INLINE or
+// PLAN_RING), launching nothing: info[0..7] = plan, path warps, WTA
+// warps, threads, shared memory bytes, blocks resident a multiprocessor,
+// frame slots, waves (0: it cannot launch).
+extern "C" int sdr_sweep_plan(int up, int plan, int B, int W, int D,
+                              int* info) {
+  if (bad_args(W, D, 0, 0, 1) || B < 1 || plan < 0 || plan > PLAN_RING ||
+      (plan && !up))
+    return (int)cudaErrorInvalidValue;
+  SweepPlan p{};
+  const cudaError_t e =
+      D <= 64    ? plan_sweep<1>(up, plan, B, W, D, &p)
+      : D <= 128 ? plan_sweep<2>(up, plan, B, W, D, &p)
+                 : plan_sweep<4>(up, plan, B, W, D, &p);
+  const int v[8] = {p.plan,   p.nw,    p.nwt,   p.threads,
+                    (int)p.smem, p.per_sm, p.slots, p.waves};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return (int)e;
 }
 
 // out, d2p: sdr_agg_up_wta's (B, H, W) outputs; the LR check in place.

@@ -70,11 +70,16 @@ counts kernel launches per wrapper and mode (``cost_box_pair``,
 ``tile_down``, ``tile_horiz``, ``tile_up_wta`` and ``tile_lr`` tile_sgm.cu's
 kernels on a tile, ``agg_down``, ``agg_horiz``, ``agg_up_wta`` and
 ``agg_lr`` the same kernels on the matcher's batch); nothing else touches
-it.
+it. ``UP_WTA_PLANS`` counts the launches of the up sweep with the WTA
+(``tile_up_wta``, ``agg_up_wta`` and its mirror mode) by the launch plan
+csrc/tile_sgm.cu reports it ran: "ring" (WTA warps of their own, fed
+through a ring of row slots) or "inline" (the WTA on the path warps);
+``sweep_plan`` gives a sweep's plan without launching it.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -94,7 +99,8 @@ __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "sgbm_staged_cuda", "sgbm_tile_cuda", "tile_bias", "tile_down",
            "tile_horiz", "tile_up_wta", "sweeps_take", "sweep_max_width",
            "agg_route",
-           "agg_down", "agg_horiz", "agg_up_wta", "aggregate_wta"]
+           "agg_down", "agg_horiz", "agg_up_wta", "aggregate_wta",
+           "UP_WTA_PLANS", "reset_up_wta_plans", "sweep_plan"]
 
 LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "wta_lr_mirror": 0, "speckle_labels": 0, "speckle_keep": 0,
@@ -104,6 +110,9 @@ LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "tile_down": 0, "tile_horiz": 0, "tile_up_wta": 0, "tile_lr": 0,
             "agg_down": 0, "agg_horiz": 0, "agg_up_wta": 0,
             "agg_up_wta_mirror": 0, "agg_lr": 0}
+# the up sweep's launch plans, by csrc/tile_sgm.cu's PLAN_* numbers
+UP_WTA_PLANS = {"ring": 0, "inline": 0}
+_PLAN_NAMES = {1: "inline", 2: "ring"}
 I16_MAX = 32767
 SWEEP_MAX_SIDE = 32768   # the sweep kernel's largest H and W (csrc/sweep.cu)
 SWEEP_MAX_STRIP = 32     # columns of a strip of csrc/tile_sgm.cu, at most
@@ -112,6 +121,36 @@ SWEEP_MAX_STRIP = 32     # columns of a strip of csrc/tile_sgm.cu, at most
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_up_wta_plans() -> None:
+    for k in UP_WTA_PLANS:
+        UP_WTA_PLANS[k] = 0
+
+
+def _count_plan(plan: ctypes.c_int) -> None:
+    """Count an up sweep's launch under the plan its entry reported."""
+    UP_WTA_PLANS[_PLAN_NAMES[plan.value]] += 1
+
+
+def sweep_plan(up: bool, B: int, W: int, D: int,
+               plan: Optional[str] = None) -> dict:
+    """The launch plan of csrc/tile_sgm.cu's down sweep (``up`` False) or
+    up sweep with the WTA over B frames W x D on the current card, without
+    a launch: the plan's name ("down", or ``UP_WTA_PLANS``'s), its path
+    and WTA warps, threads, shared memory bytes, blocks resident a
+    multiprocessor, frame slots and waves (0: it cannot launch). ``plan``
+    (an up sweep's) forces that plan where the launch would choose."""
+    info = (ctypes.c_int * 8)()
+    force = {None: 0, **{v: k for k, v in _PLAN_NAMES.items()}}[plan]
+    rc = kernels.load().sdr_sweep_plan(int(up), force, B, W, D,
+                                       ctypes.addressof(info))
+    kernels.check(rc, "sweep_plan")
+    keys = ("plan", "path_warps", "wta_warps", "threads", "smem", "per_sm",
+            "slots", "waves")
+    out = dict(zip(keys, info))
+    out["plan"] = _PLAN_NAMES.get(out["plan"], "down")
+    return out
 
 
 def _check_params(params: SGBMParams, *tensors: torch.Tensor) -> None:
@@ -600,14 +639,16 @@ def _tile_up(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
                       device=C_body.device)
     lib = kernels.load()
     scratch = _agg_scratch(lib, C_body)
+    plan = ctypes.c_int(0)
     rc = lib.sdr_tile_up_wta(
         C_body.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
         scratch.data_ptr(), R, W, D, local, int(bias), params.P1, params.P2,
         len(plain.up_dirs(params.num_paths)), params.min_disparity,
         params.uniqueness_ratio, int(params.quantize_16), int(lr),
-        kernels.stream())
+        ctypes.addressof(plan), kernels.stream())
     kernels.check(rc, "tile_up_wta")
     LAUNCHES["tile_up_wta"] += 1
+    _count_plan(plan)
     return out, d2p
 
 
@@ -785,15 +826,17 @@ def _agg_up(C: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
                       device=C.device)
     lib = kernels.load()
     scratch = _agg_scratch(lib, C)
+    plan = ctypes.c_int(0)
     rc = lib.sdr_agg_up_wta(
         C.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
         scratch.data_ptr(), B, H, W, D, int(bias), params.P1, params.P2,
         len(plain.up_dirs(params.num_paths)), params.min_disparity,
         params.uniqueness_ratio, int(params.quantize_16), int(lr), m,
-        kernels.stream())
+        ctypes.addressof(plan), kernels.stream())
     name = "agg_up_wta" if m == B else "agg_up_wta_mirror"
     kernels.check(rc, name)
     LAUNCHES[name] += 1
+    _count_plan(plan)
     return out, d2p
 
 

@@ -249,3 +249,23 @@ def test_route_stops_at_the_widest_frame(sms, width, route):
                         sc.SWEEP_MAX_STRIP * sms) == "passes"
     assert sc.sweep_max_width(torch.device("cpu")) is None
     assert sc.agg_route(params, True, width, None) == "sweeps"
+
+
+def test_up_wta_plans_start_empty_and_reset():
+    """``UP_WTA_PLANS`` names csrc/tile_sgm.cu's up-sweep plans by the
+    numbers the source gives them (read from it), starts at zero, counts
+    no launch of a CPU call (the plain stages) and resets to zero."""
+    src = (Path(sc.__file__).parent / "csrc" / "tile_sgm.cu").read_text()
+    numbers = {name.lower(): int(v) for name, v in re.findall(
+        r"PLAN_(INLINE|RING) = (\d+)", src)}
+    assert {sc._PLAN_NAMES[v]: v for v in numbers.values()} == numbers
+    assert set(sc.UP_WTA_PLANS) == set(numbers)
+    assert all(v == 0 for v in sc.UP_WTA_PLANS.values())
+    params = params_of("8p-b5-d16")
+    C = torch.randint(0, 60, (B, 24, 40, 16), dtype=torch.int16)
+    bias = sc.tile_bias(params)
+    sc.agg_up_wta(C, sc.agg_down(C, params, bias), params, bias)
+    assert all(v == 0 for v in sc.UP_WTA_PLANS.values())
+    sc.UP_WTA_PLANS["ring"] = 3
+    sc.reset_up_wta_plans()
+    assert all(v == 0 for v in sc.UP_WTA_PLANS.values())

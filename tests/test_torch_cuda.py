@@ -853,6 +853,10 @@ def ran_since(before):
                       disp12_max_diff=-1)),
     (1, 16, 1500, dict(num_disparities=32)),        # one frame, wide strips
     (4, 18, 403, dict(num_disparities=64, num_paths=4, block_size=7)),
+    (2, 40, 1280, dict(num_disparities=128)),       # the live pair's frames
+    (16, 14, 1280, dict(num_disparities=128)),      # a batch of 8 pairs
+    (2, 33, 1001, dict(num_disparities=80)),        # lanes beyond D
+    (16, 13, 700, dict(num_disparities=256)),
 ])
 def test_batch_sweeps_match_plain(cuda, B, H, W, kw):
     """The matcher's batch route over B frames (csrc/tile_sgm.cu's sweeps
@@ -862,8 +866,10 @@ def test_batch_sweeps_match_plain(cuda, B, H, W, kw):
     the mirror mode with the trailing frames (or all of them) mirrored;
     at 8 frames of 1100 x 256 more frames than the card holds at once, so
     the frames go in waves. The cases cover each launch plan: one frame
-    of narrow strips (WTA warps) and of wide ones, fewer than 4 frames and
-    4 or more (path warps of one column and of two, the WTA inline)."""
+    of narrow strips (WTA warps a row behind) and of wide ones (the WTA
+    inline), 2 frames and more (the ring's WTA warps; path warps of one
+    column and, from 4 frames, of two) at D 16 to 256 (D 80: lanes beyond
+    D), the ring's slots reused many times over (H >= 13, 3 slots)."""
     params = SGBMParams(speckle_window_size=0, **kw)
     bias = sc.tile_bias(params)
     assert bias is not None and sc.agg_route(params) == "sweeps"
@@ -899,6 +905,34 @@ def test_batch_sweeps_match_plain(cuda, B, H, W, kw):
             assert torch.equal(got, sc.wta_lr(S32, params, apply_lr,
                                               mirror_from=m))
             assert torch.equal(got, sc.aggregate_wta(C, params, apply_lr, m))
+
+
+@pytest.mark.parametrize("B,W,D,plan", [
+    (2, 1280, 128, "inline"),    # the live pair's two frames
+    (16, 1280, 128, "inline"),   # a batch of 8 pairs, stacked
+    (1, 1280, 128, "ring"),      # one frame of narrow strips
+    (1, 2560, 256, "ring"),      # one frame of wide strips
+    (2, 640, 80, "ring"),        # two frames of strips of 5 columns
+])
+def test_up_wta_plan_by_shape(cuda, B, W, D, plan):
+    """The up sweep with the WTA takes its launch plan from the shape:
+    ``UP_WTA_PLANS`` counts the plan the launch reports, and
+    ``sweep_plan`` gives it beforehand; the ring puts the frames in no
+    more waves than the inline plan would."""
+    params = SGBMParams(num_disparities=D, speckle_window_size=0)
+    bias = sc.tile_bias(params)
+    C = torch.zeros((B, 8, W, D), dtype=torch.int16, device=cuda)
+    S = sc.agg_down(C, params, bias)
+    chosen = sc.sweep_plan(True, B, W, D)
+    assert chosen["plan"] == plan
+    before = dict(sc.UP_WTA_PLANS)
+    sc.agg_up_wta(C, S, params, bias)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in sc.UP_WTA_PLANS.items()
+            if v != before[k]} == {plan: 1}
+    inline = sc.sweep_plan(True, B, W, D, "inline")
+    assert 0 < chosen["waves"] <= inline["waves"]
+    assert sc.sweep_plan(False, B, W, D)["plan"] == "down"
 
 
 @pytest.mark.parametrize("kw,route", [
