@@ -100,8 +100,8 @@ Phases, each of which raises (and exits non-zero) on failure:
 10. sharded (stereo_depth_ruler_tpu_torch/parallel): a world of one NCCL
    rank on the mesh (1, 1, 1); sgbm_sharded on one bench frame (speckle
    200/2) equal to sgbm_cuda, launching K1, the tile matcher K9
-   (sgbm_tile_cuda: tile_sgm.cu's down, horizontal and up + WTA sweeps
-   and its LR pass, no K2 or K3) and K4/K5 once each;
+   (sgbm_tile_cuda: the batch route's down, horizontal and up + WTA
+   sweeps and its LR pass on the slab, no K2 or K3) and K4/K5 once each;
    pipeline_step_sharded at batch 8 with rects and WLS, its disparity and
    xyz equal to the frame-by-frame composition of the port's functions,
    launching K1, K9 (two a frame), K6 and K7 and nothing else, at the WLS
@@ -111,8 +111,10 @@ Phases, each of which raises (and exits non-zero) on failure:
    exact fraction of 0.9999, sgbm_tile_cuda against plain.sgbm_tile and
    against the int32 route (K2 x8 and K3) bitwise on slabs with halos of
    0, 8 and 64 (zero rows beyond the image included), LR on and off, and
-   each of tile_sgm.cu's kernels against its plain stage; K9 and the int32
-   route timed in turns on the whole-frame slab, each sweep timed; then
+   each of the batch route's kernels on the slabs against its plain stage
+   (their records keep the worse error of the batch and the slabs); K9 and
+   the int32 route timed in turns on the whole-frame slab, each sweep
+   timed (logged; the records keep the batch's times); then
    per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles: the
    two routes in turns on the tile's slab, and ms and peak memory per tile
    (slab build and K9) for each route;
@@ -213,20 +215,12 @@ KERNELS = {
     "transpose_dhw": ("stereo_depth_ruler_tpu_torch/ops/csrc/transpose.cu",
                       "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:511"),
     # K9, the tile matcher: sgbm_tile_cuda on a slab that K1 builds; at the
-    # paths' parameters tile_sgm.cu's three sweeps and its LR pass (the
-    # four records below)
+    # paths' parameters the batch route's sweeps and LR pass (the agg_*
+    # records below) on the slab as a batch of one frame
     "sgbm_tile": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
                   "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1095"),
-    "tile_down": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
-                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
-    "tile_horiz": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
-                   "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
-    "tile_up_wta": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
-                    "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1463"),
-    "tile_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
-                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
-    # the matcher's batch route (aggregate_wta at its defaults): the same
-    # kernels over a batch of frames, the JAX main path's
+    # the matcher's batch route (aggregate_wta at its defaults): the
+    # kernels of tile_sgm.cu over a batch of frames, the JAX main path's
     # _fused_aggregate_wta (rows 2 and 3)
     "agg_down": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
                  "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:606"),
@@ -239,11 +233,8 @@ KERNELS = {
     "agg_lr": ("stereo_depth_ruler_tpu_torch/ops/csrc/tile_sgm.cu",
                "stereo_depth_ruler_tpu/ops/sgbm_pallas.py:1147"),
 }
-# tile_sgm.cu's kernels, launched once each per K9 call (tile_lr with the
-# LR check), by the sharded path only
-TILE_SGM = ("tile_down", "tile_horiz", "tile_up_wta", "tile_lr")
-# the batch route's kernels, launched once each per matcher call (agg_lr
-# with the LR check) on every path at its defaults
+# the batch route's kernels, launched once each per matcher call and per
+# K9 call (agg_lr with the LR check) on every path at its defaults
 AGG = ("agg_down", "agg_horiz", "agg_up_wta", "agg_lr")
 # the pair modes, launched only by the shared path
 PAIR_MODES = ("cost_box_pair", "agg_up_wta_mirror")
@@ -521,7 +512,7 @@ def check_agg(card, C, params, errs, mirror_from, tag):
     S_down = S.clone()
     sc.agg_horiz(C, S, params)
     torch.cuda.synchronize()
-    out, d2p = sc._agg_up(C, S, params, bias, True, m)
+    out, d2p = sc._agg_up(C, S, params, bias, True, m, H)
     torch.cuda.synchronize()
     out_up = out.clone()
     sc._agg_lr(out, d2p, params, m)
@@ -552,7 +543,8 @@ def check_agg(card, C, params, errs, mirror_from, tag):
                      cuda_ms(per_frame(plain_down), 1), None),
         "agg_horiz": (cuda_ms(lambda: sc.agg_horiz(C, S_t, params), 5),
                       cuda_ms(per_frame(plain_horiz), 1), None),
-        up: (cuda_ms(lambda: sc._agg_up(C, S, params, bias, True, m), 5),
+        up: (cuda_ms(lambda: sc._agg_up(C, S, params, bias, True, m, H),
+                     5),
              cuda_ms(per_frame(plain_up), 1), None),
     }
     del S_t
@@ -1906,20 +1898,22 @@ def phase_sharded(card, errs, frames, full_pipe):
     """The sharded path (stereo_depth_ruler_tpu_torch/parallel) on a world
     of one NCCL rank and the mesh (1, 1, 1), and the tile matcher (K9) in
     this process at 2 and 4 tiles: (1) sgbm_sharded on one bench frame,
-    equal to sgbm_cuda, launching K1, K9 (tile_sgm.cu's four kernels),
-    K4 and K5 once each; (2) pipeline_step_sharded at batch 8 with rects
-    and WLS, equal frame by frame to the composition of the port's own
-    functions (remap, sgbm_cuda on the pair and on the mirrored, swapped
-    pair, the WLS filter, reproject), launching K1, K9, K6 and K7 only,
+    equal to sgbm_cuda, launching K1, K9 (the batch route's four
+    kernels on the slab), K4 and K5 once each; (2)
+    pipeline_step_sharded at batch 8 with rects and WLS, equal frame by
+    frame to the composition of the port's own functions (remap,
+    sgbm_cuda on the pair and on the mirrored, swapped pair, the WLS
+    filter, reproject), launching K1, K9, K6 and K7 only,
     at the WLS bar, timed in turns with the full path; (3) 2 tiles with a
     full-coverage halo equal to the whole frame, halo 64 at 2 and 4 tiles
     within the halo-32 bound of the JAX package's HALO_r04.jsonl (max
     |err| <= 1/16 px, exact fraction >= 0.9999), sgbm_tile_cuda against
     plain.sgbm_tile and the int32 route on slabs with halos of 0, 8 and
-    64 (zero rows beyond the image included), tile_sgm.cu's kernels
-    against their plain stages, the two routes timed in turns; (4) per
-    tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4 tiles, the two
-    routes in turns on the tile's slab, ms and peak memory per tile.
+    64 (zero rows beyond the image included), the batch route's kernels
+    on the slabs against their plain stages, the two routes timed in
+    turns; (4) per tile at 720x1280x128 and 2560x1440x256 for 1, 2 and 4
+    tiles, the two routes in turns on the tile's slab, ms and peak memory
+    per tile.
     Returns the counted step's launches and K9's times and bounds."""
     import tempfile
 
@@ -1966,7 +1960,7 @@ def phase_sharded(card, errs, frames, full_pipe):
             if not torch.equal(got, want):
                 raise AssertionError("sgbm_sharded differs from sgbm_cuda")
             if ran != {"cost_box": 1, "sgbm_tile": 1, "speckle_labels": 1,
-                       "speckle_keep": 1, **{k: 1 for k in TILE_SGM}}:
+                       "speckle_keep": 1, **{k: 1 for k in AGG}}:
                 raise AssertionError(f"sgbm_sharded ran {ran}")
 
             # (2) the pipeline step at batch 8, full width
@@ -1987,10 +1981,10 @@ def phase_sharded(card, errs, frames, full_pipe):
             launches = {**sc.LAUNCHES, **wc.LAUNCHES}
             log(f"sharded step launches: {launches}")
             # per frame two K9 (the pair and the mirrored, swapped pair),
-            # each K1 and tile_sgm.cu's four kernels; one K7, six K6
+            # each K1 and the batch route's four kernels; one K7, six K6
             step_kernels = {"cost_box": 2 * B, "sgbm_tile": 2 * B,
                             "shift_gather": B, "fgs_pass": 6 * B,
-                            **{k: 2 * B for k in TILE_SGM}}
+                            **{k: 2 * B for k in AGG}}
             if {k: v for k, v in launches.items() if v} != step_kernels:
                 raise AssertionError(f"the sharded step ran {launches}")
             turns = in_turns_ms([step,
@@ -2065,7 +2059,7 @@ def phase_sharded(card, errs, frames, full_pipe):
                             flat)
     bias = sc.tile_bias(flat)
     err = 0.0
-    tile_errs = {k: 0.0 for k in TILE_SGM}
+    tile_errs = dict.fromkeys(AGG, 0.0)
     q = H // 4
     for start, local, top, bottom in ((0, H, 0, 0), (0, q, 64, 64),
                                       (q, 2 * q, 8, 64), (3 * q, q, 64, 8),
@@ -2079,32 +2073,33 @@ def phase_sharded(card, errs, frames, full_pipe):
                     max_abs_err(got, sc._sgbm_tile_i32(C, flat, top,
                                                        apply_lr)[:, :local]))
             err = max(err, e)
-        # tile_sgm.cu's kernels against their plain stages
+        # the batch route's kernels on the slab against their plain stages
         body = C[:, top:]
-        S = sc.tile_down(C, flat, top, bias)
+        S = sc.agg_down(C, flat, bias, top)
         S_p = plain.tile_down_sum(C, flat, top, bias)
-        tile_errs["tile_down"] = max(tile_errs["tile_down"],
-                                     max_abs_err(S, S_p))
-        sc.tile_horiz(body, S, flat)
+        tile_errs["agg_down"] = max(tile_errs["agg_down"],
+                                    max_abs_err(S, S_p))
+        sc.agg_horiz(body, S, flat)
         S_p = plain.tile_horizontal(body, S_p, flat)
-        tile_errs["tile_horiz"] = max(tile_errs["tile_horiz"],
-                                      max_abs_err(S, S_p))
+        tile_errs["agg_horiz"] = max(tile_errs["agg_horiz"],
+                                     max_abs_err(S, S_p))
         del S_p
-        out, d2p = sc._tile_up(body, S, flat, bias, local, True)
+        out, d2p = sc._agg_up(body, S, flat, bias, True, 1, local)
         want = plain.tile_up_wta(body, S, flat, bias, False)[:, :local]
-        tile_errs["tile_up_wta"] = max(tile_errs["tile_up_wta"],
-                                       max_abs_err(out, want))
-        sc._tile_lr(out, d2p, flat)
+        tile_errs["agg_up_wta"] = max(tile_errs["agg_up_wta"],
+                                      max_abs_err(out, want))
+        sc._agg_lr(out, d2p, flat, 1)
         want = plain.tile_up_wta(body, S, flat, bias, True)[:, :local]
-        tile_errs["tile_lr"] = max(tile_errs["tile_lr"],
-                                   max_abs_err(out, want))
+        tile_errs["agg_lr"] = max(tile_errs["agg_lr"],
+                                  max_abs_err(out, want))
         torch.cuda.synchronize()
         del S, out, d2p, want
         log(f"sharded K9: slab rows {start}-{start + local} of {H}, halos "
             f"{top}/{bottom}: max|err| vs plain.sgbm_tile and the int32 "
             f"route {e}; stages {tile_errs}")
     errs["sgbm_tile"] = err
-    errs.update(tile_errs)
+    for k, e in tile_errs.items():   # the batch's records: the worse of both
+        errs[k] = max(errs.get(k, 0.0), e)
     if err or any(tile_errs.values()):
         raise AssertionError("sgbm_tile_cuda differs from plain.sgbm_tile, "
                              "the int32 route or a plain stage")
@@ -2115,32 +2110,32 @@ def phase_sharded(card, errs, frames, full_pipe):
     log(f"sharded [{card}]: K9 on the 1x{H}x{W}x{D} slab in turns with the "
         f"int32 route (K2 x8, K3): {' / '.join(f'{x:.3f}' for x in k9)} "
         f"ms against {' / '.join(f'{x:.3f}' for x in i32)} ms")
-    S = sc.tile_down(C, flat, 0, bias)
+    S = sc.agg_down(C, flat, bias)
     S_h = S.clone()
-    sc.tile_horiz(C, S_h, flat)
-    out, d2p = sc._tile_up(C, S_h, flat, bias, H, True)
+    sc.agg_horiz(C, S_h, flat)
+    out, d2p = sc._agg_up(C, S_h, flat, bias, True, 1, H)
     S_t = S.clone()
     times = {
         "sgbm_tile": (sum(k9) / 2,
                       cuda_ms(lambda: plain.sgbm_tile(C, flat), 1), None),
-        "tile_down": (cuda_ms(lambda: sc.tile_down(C, flat, 0, bias), 10),
-                      cuda_ms(lambda: plain.tile_down_sum(C, flat, 0, bias),
-                              1), None),
-        "tile_horiz": (cuda_ms(lambda: sc.tile_horiz(C, S_t, flat), 10),
-                       cuda_ms(lambda: plain.tile_horizontal(C, S, flat), 1),
-                       None),
-        "tile_up_wta": (
-            cuda_ms(lambda: sc._tile_up(C, S_h, flat, bias, H, True), 10),
+        "agg_down": (cuda_ms(lambda: sc.agg_down(C, flat, bias), 10),
+                     cuda_ms(lambda: plain.tile_down_sum(C, flat, 0, bias),
+                             1), None),
+        "agg_horiz": (cuda_ms(lambda: sc.agg_horiz(C, S_t, flat), 10),
+                      cuda_ms(lambda: plain.tile_horizontal(C, S, flat), 1),
+                      None),
+        "agg_up_wta": (
+            cuda_ms(lambda: sc._agg_up(C, S_h, flat, bias, True, 1, H), 10),
             cuda_ms(lambda: plain.tile_up_wta(C, S_h, flat, bias, False), 1),
             None),
-        "tile_lr": (cuda_ms(lambda: sc._tile_lr(out, d2p, flat), 10),
-                    None, None),
+        "agg_lr": (cuda_ms(lambda: sc._agg_lr(out, d2p, flat, 1), 10),
+                   None, None),
     }
     # the LR pass's plain version: lr_check on the 8-path sum and its WTA
     S_f = (S_h.float() + bias + plain._sum_passes(
         C.float(), plain.up_dirs(flat.num_paths), flat))
     disp_f, valid_f = plain.wta(S_f, flat)
-    times["tile_lr"] = (times["tile_lr"][0], cuda_ms(
+    times["agg_lr"] = (times["agg_lr"][0], cuda_ms(
         lambda: plain.lr_check(S_f, disp_f, valid_f, flat), 1), None)
     del S_f, disp_f, valid_f
     el, px = H * W * D, H * W
@@ -2148,11 +2143,11 @@ def phase_sharded(card, errs, frames, full_pipe):
     # ~8 per element and path, ~4 per element for the WTA, ~4 per pixel
     # for the LR check
     bounds = {"sgbm_tile": bound(2 * el + 4 * px, (8 * 8 + 4) * el),
-              "tile_down": bound(4 * el, 8 * 3 * el),
-              "tile_horiz": bound(6 * el, 8 * 2 * el),
-              "tile_up_wta": bound(4 * el + 8 * px, (8 * 3 + 4) * el),
-              "tile_lr": bound(12 * px, 4 * px)}
-    for name in ("sgbm_tile", *TILE_SGM):
+              "agg_down": bound(4 * el, 8 * 3 * el),
+              "agg_horiz": bound(6 * el, 8 * 2 * el),
+              "agg_up_wta": bound(4 * el + 8 * px, (8 * 3 + 4) * el),
+              "agg_lr": bound(12 * px, 4 * px)}
+    for name in ("sgbm_tile", *AGG):
         log(f"sharded [{card}]: {name} on the step's 1x{H}x{W}x{D} slab: "
             f"kernel {times[name][0]:.4f} ms, plain {times[name][1]:.3f} ms, "
             f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]})")
@@ -2210,7 +2205,9 @@ def phase_sharded(card, errs, frames, full_pipe):
                                      "int32 route's")
         del l, r
         torch.cuda.empty_cache()
-    return launches, times, bounds
+    # the kernels' records keep the batch's times; K9's stay in the log
+    return (launches, {"sgbm_tile": times["sgbm_tile"]},
+            {"sgbm_tile": bounds["sgbm_tile"]})
 
 
 def _cli(argv):
@@ -2689,7 +2686,7 @@ def main():
                                                "wta_lr_mirror")})
     launches.update({k: launches4[k] for k in SORT_FAMILY})
     launches.update({k: launches5[k] for k in (*STAGED_CHAIN, *TRANSPOSES)})
-    launches.update({k: launches6[k] for k in ("sgbm_tile", *TILE_SGM)})
+    launches["sgbm_tile"] = launches6["sgbm_tile"]
     times = {**times1, **times2, **times3, **times4, **times5, **times6}
     bounds = {**bounds1, **bounds2, **bounds3, **bounds4, **bounds5,
               **bounds6}

@@ -13,18 +13,18 @@
 // as ops/sgbm.py:directional_pass. The slab C is (M, W, D) int16, M =
 // top_halo + R rows, R = local + bottom_halo the body rows.
 //
-//   1. tile_sweep_kernel<UP = false> (sdr_tile_down): the vertical path,
+//   1. tile_sweep_kernel<UP = false> (sdr_agg_down): the vertical path,
 //      and with 8 paths both diagonals, over all M rows; writes S_dh =
 //      L_down - bias for the R body rows (the top halo is warm-up only);
-//   2. tile_horiz_kernel (sdr_tile_horiz): both horizontal paths of each
+//   2. tile_horiz_kernel (sdr_agg_horiz): both horizontal paths of each
 //      body row added into S_dh;
-//   3. tile_sweep_kernel<UP = true> (sdr_tile_up_wta): the up-going paths
+//   3. tile_sweep_kernel<UP = true> (sdr_agg_up_wta): the up-going paths
 //      from the slab's last row up to the first body row; each row's S =
 //      S_dh + bias + L_up goes to the WTA in registers (K3's body: packed
 //      key reduce, exact integer uniqueness, IEEE subpixel, rintf for
 //      quantize_16) for the local rows; writes the disparity before the LR
 //      check, -1.0 where invalid;
-//   4. tile_lr_kernel (sdr_tile_lr): the LR check. Its right-view
+//   4. tile_lr_kernel (sdr_agg_lr): the LR check. Its right-view
 //      disparity is the per-row winner scatter of wta_lr.cu, which crosses
 //      strips: the up sweep scatters each column's packed winner key
 //      (s0 * PK + d* + md) by atomicMin into a per-row int32 buffer
@@ -100,8 +100,9 @@
 // by the bias it chooses), the WTA's float operations are K3's, so the
 // result equals ops/sgbm.py:sgbm_tile bit for bit.
 //
-// The matcher's batch route (sdr_agg_*, ops/sgbm_cuda.py:aggregate_wta)
-// runs the same kernels over a whole (B, H, W, D) batch of frames, as the
+// The entries (sdr_agg_*) take B frames: K9 passes its one slab, the
+// matcher's batch route (ops/sgbm_cuda.py:aggregate_wta) a whole (B, H,
+// W, D) batch of frames, which it runs as the
 // JAX package's main path runs _fused_aggregate_wta
 // (stereo_depth_ruler_tpu/ops/sgbm_pallas.py: directional_pass_pallas
 // _dir_pass_kernel for hf, hb and down with out_offset = -bias, then
@@ -1146,56 +1147,6 @@ cudaError_t lr_pass(float* out, const int* d2p, int nfr, int local, int W,
 
 }  // namespace
 
-// C: (M, W, D) int16 slab; S: (M - top, W, D) int16 out, the down-going
-// paths' sum (ndir 3: vertical and both diagonals; 1: vertical) minus bias
-// on the body rows. scratch: sdr_agg_scratch_size(1, W, D) int16, zeroed.
-// The caller keeps every S_dh value within int16.
-extern "C" int sdr_tile_down(const int16_t* C, int16_t* S, int16_t* scratch,
-                             int M, int W, int D, int top, int bias, int P1,
-                             int P2, int ndir, void* stream) {
-  if (bad_args(W, D, P1, P2, ndir) || top < 0 || M <= top)
-    return (int)cudaErrorInvalidValue;
-  return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
-                               (unsigned long long*)scratch, 1, M, W, D, top,
-                               0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, 1,
-                               nullptr, (cudaStream_t)stream);
-}
-
-// C, S: (R, W, D) int16 body rows of the slab and S_dh; both horizontal
-// paths added into S in place. A (B, H, W, D) batch is R = B * H rows.
-extern "C" int sdr_tile_horiz(const int16_t* C, int16_t* S, int R, int W,
-                              int D, int P1, int P2, void* stream) {
-  if (bad_args(W, D, P1, P2, 1) || R < 1) return (int)cudaErrorInvalidValue;
-  return (int)horiz(C, S, R, W, D, P1, P2, (cudaStream_t)stream);
-}
-
-// C, S: (R, W, D) int16 body rows and S_dh; out: (local, W) float32, the
-// disparity before the LR check (-1.0 where invalid); d2p: (local, W)
-// int32, the per-row winner scatter, written when lr (set to "no winner"
-// here first). scratch as sdr_tile_down's. md >= 0. *plan: the launch
-// plan that ran (PLAN_INLINE or PLAN_RING).
-extern "C" int sdr_tile_up_wta(const int16_t* C, const int16_t* S, float* out,
-                               int* d2p, int16_t* scratch, int R, int W,
-                               int D, int local, int bias, int P1, int P2,
-                               int ndir, int md, int uniq, int quant16,
-                               int lr, int* plan, void* stream) {
-  if (bad_args(W, D, P1, P2, ndir) || R < 1 || local < 1 || local > R ||
-      md < 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)up_wta(C, S, out, d2p, scratch, 1, R, W, D, local, bias, P1,
-                     P2, ndir, md, uniq, quant16, lr, 1, plan,
-                     (cudaStream_t)stream);
-}
-
-// out, d2p: sdr_tile_up_wta's (local, W) outputs; the LR check in place.
-extern "C" int sdr_tile_lr(float* out, const int* d2p, int local, int W,
-                           int D, int md, int disp12, void* stream) {
-  if (local < 1 || W < 1 || md < 0 || disp12 < 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)lr_pass(out, d2p, 1, local, W, D, md, disp12, 1,
-                      (cudaStream_t)stream);
-}
-
 // int16 entries of zeroed scratch that one sweep over B frames (B = 1: a
 // tile's slab) needs: a frame's edge exchange each; -1 for bad arguments or
 // where the device cannot be read.
@@ -1206,35 +1157,48 @@ extern "C" long long sdr_agg_scratch_size(int B, int W, int D) {
   return (long long)B * strips * 8 * (D / 2) * 4;
 }
 
-// C: (B, H, W, D) int16 cost volume; S: (B, H, W, D) int16 out, S_dh =
-// the down-going paths' sum minus bias. scratch: sdr_agg_scratch_size(B,
-// W, D) int16, zeroed. The caller keeps every S_dh value within int16.
+// C: (B, H, W, D) int16 cost volume (a tile's slab: B = 1); S: (B, H -
+// top, W, D) int16 out, S_dh = the down-going paths' sum (ndir 3: vertical
+// and both diagonals; 1: vertical) over all H rows minus bias, on the rows
+// below each frame's first top (a tile's top halo, warm-up only).
+// scratch: sdr_agg_scratch_size(B, W, D) int16, zeroed. The caller keeps
+// every S_dh value within int16.
 extern "C" int sdr_agg_down(const int16_t* C, int16_t* S, int16_t* scratch,
-                            int B, int H, int W, int D, int bias, int P1,
-                            int P2, int ndir, void* stream) {
-  if (bad_args(W, D, P1, P2, ndir) || B < 1 || H < 1)
+                            int B, int H, int W, int D, int top, int bias,
+                            int P1, int P2, int ndir, void* stream) {
+  if (bad_args(W, D, P1, P2, ndir) || B < 1 || top < 0 || H <= top)
     return (int)cudaErrorInvalidValue;
   return (int)sweep_vpl<false>(C, S, nullptr, nullptr,
-                               (unsigned long long*)scratch, B, H, W, D, 0,
+                               (unsigned long long*)scratch, B, H, W, D, top,
                                0, bias, P1, P2, ndir, 0, 0, 0, 0, 1, B,
                                nullptr, (cudaStream_t)stream);
 }
 
-// C, S: (B, H, W, D) int16 cost volume and S_dh; out: (B, H, W) float32,
-// the disparity before the LR check (-1.0 where invalid); d2p: (B, H, W)
-// int32 winner scatter, written when lr. Frames b >= mirror_from in mirror
-// mode. scratch as sdr_agg_down's. md >= 0. *plan as sdr_tile_up_wta's.
+// C, S: (R, W, D) int16 cost rows and S_dh; both horizontal paths added
+// into S in place. A (B, H, W, D) batch is R = B * H rows.
+extern "C" int sdr_agg_horiz(const int16_t* C, int16_t* S, int R, int W,
+                             int D, int P1, int P2, void* stream) {
+  if (bad_args(W, D, P1, P2, 1) || R < 1) return (int)cudaErrorInvalidValue;
+  return (int)horiz(C, S, R, W, D, P1, P2, (cudaStream_t)stream);
+}
+
+// C, S: (B, H, W, D) int16 cost volume (a tile's body rows: B = 1) and
+// S_dh; out: (B, local, W) float32, the disparity of each frame's first
+// local rows before the LR check (-1.0 where invalid); d2p: (B, local, W)
+// int32 winner scatter, written when lr (set to "no winner" here first).
+// Frames b >= mirror_from in mirror mode. scratch as sdr_agg_down's.
+// md >= 0. *plan: the launch plan that ran (PLAN_INLINE or PLAN_RING).
 extern "C" int sdr_agg_up_wta(const int16_t* C, const int16_t* S, float* out,
                               int* d2p, int16_t* scratch, int B, int H,
-                              int W, int D, int bias, int P1, int P2,
-                              int ndir, int md, int uniq, int quant16,
-                              int lr, int mirror_from, int* plan,
-                              void* stream) {
-  if (bad_args(W, D, P1, P2, ndir) || B < 1 || H < 1 || md < 0 ||
-      mirror_from < 0 || mirror_from > B)
+                              int W, int D, int local, int bias, int P1,
+                              int P2, int ndir, int md, int uniq,
+                              int quant16, int lr, int mirror_from,
+                              int* plan, void* stream) {
+  if (bad_args(W, D, P1, P2, ndir) || B < 1 || local < 1 || local > H ||
+      md < 0 || mirror_from < 0 || mirror_from > B)
     return (int)cudaErrorInvalidValue;
-  return (int)up_wta(C, S, out, d2p, scratch, B, H, W, D, H, bias, P1, P2,
-                     ndir, md, uniq, quant16, lr, mirror_from, plan,
+  return (int)up_wta(C, S, out, d2p, scratch, B, H, W, D, local, bias, P1,
+                     P2, ndir, md, uniq, quant16, lr, mirror_from, plan,
                      (cudaStream_t)stream);
 }
 
@@ -1259,7 +1223,8 @@ extern "C" int sdr_sweep_plan(int up, int plan, int B, int W, int D,
   return (int)e;
 }
 
-// out, d2p: sdr_agg_up_wta's (B, H, W) outputs; the LR check in place.
+// out, d2p: sdr_agg_up_wta's (B, local, W) outputs, H = local; the LR
+// check in place.
 extern "C" int sdr_agg_lr(float* out, const int* d2p, int B, int H, int W,
                           int D, int md, int disp12, int mirror_from,
                           void* stream) {

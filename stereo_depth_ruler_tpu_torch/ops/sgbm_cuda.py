@@ -55,10 +55,11 @@ port's layout needs none of them, the stage profiler times them.
 per-tile matcher of the sharded path, on a row slab of the cost volume with
 halo rows, which K1 builds (``parallel/sharded.py``). ``tile_bias`` picks
 its route as the JAX package's ``_wta_bias`` does: where the down-going and
-horizontal paths' sum fits int16 as it is or shifted by a bias, the three
-sweeps of csrc/tile_sgm.cu (``tile_down``, ``tile_horiz``, ``tile_up_wta``
-with its LR pass), on one int16 volume S_dh; otherwise K2 x8 and K3 on an
-int32 S. The batch route runs the same kernels over B frames a launch.
+horizontal paths' sum fits int16 as it is or shifted by a bias, the
+batch route's three sweeps on the slab as a batch of one frame
+(``agg_down`` with the top halo, ``agg_horiz`` and ``agg_up_wta`` of the
+tile's own rows, with its LR pass), on one int16 volume S_dh; otherwise K2
+x8 and K3 on an int32 S.
 
 Volumes are ``(B, H, W, D)`` with D contiguous. Each wrapper dispatches on
 the device of its input: a CPU tensor gets the plain version of
@@ -67,11 +68,10 @@ counts kernel launches per wrapper and mode (``cost_box_pair``,
 ``wta_lr_mirror`` and ``agg_up_wta_mirror`` are the pair modes,
 ``sweep_labels`` and ``sweep_propagate`` the sweep kernel's two,
 ``sgm_pass_i16`` K2 on an int16 S, ``sgbm_tile`` the tile matchers,
-``tile_down``, ``tile_horiz``, ``tile_up_wta`` and ``tile_lr`` tile_sgm.cu's
-kernels on a tile, ``agg_down``, ``agg_horiz``, ``agg_up_wta`` and
-``agg_lr`` the same kernels on the matcher's batch); nothing else touches
+``agg_down``, ``agg_horiz``, ``agg_up_wta`` and ``agg_lr`` tile_sgm.cu's
+kernels, on the matcher's batch and on K9's slabs); nothing else touches
 it. ``UP_WTA_PLANS`` counts the launches of the up sweep with the WTA
-(``tile_up_wta``, ``agg_up_wta`` and its mirror mode) by the launch plan
+(``agg_up_wta`` and its mirror mode) by the launch plan
 csrc/tile_sgm.cu reports it ran: "ring" (WTA warps of their own, fed
 through a ring of row slots) or "inline" (the WTA on the path warps);
 ``sweep_plan`` gives a sweep's plan without launching it.
@@ -93,12 +93,11 @@ from . import sort_cuda
 __all__ = ["LAUNCHES", "reset_launch_counts", "cost_volume",
            "cost_volume_pair", "sgm_pass", "aggregate", "wta_lr",
            "speckle_labels", "speckle_keep", "sweep_labels", "propagate_keep",
-           "speckle_keep_seeded", "speckle_filter", "sgbm_cuda",
-           "sgbm_pair_cuda", "cost_down", "aggregate_i16", "wta_lr3",
-           "transpose_vol", "transpose_leading", "transpose_dhw_to_wdh",
-           "sgbm_staged_cuda", "sgbm_tile_cuda", "tile_bias", "tile_down",
-           "tile_horiz", "tile_up_wta", "sweeps_take", "sweep_max_width",
-           "agg_route",
+           "speckle_keep_seeded", "speckle_filter", "remove_speckles",
+           "sgbm_cuda", "sgbm_pair_cuda", "cost_down", "aggregate_i16",
+           "wta_lr3", "transpose_vol", "transpose_leading",
+           "transpose_dhw_to_wdh", "sgbm_staged_cuda", "sgbm_tile_cuda",
+           "tile_bias", "sweeps_take", "sweep_max_width", "agg_route",
            "agg_down", "agg_horiz", "agg_up_wta", "aggregate_wta",
            "UP_WTA_PLANS", "reset_up_wta_plans", "sweep_plan"]
 
@@ -107,7 +106,6 @@ LAUNCHES = {"cost_box": 0, "cost_box_pair": 0, "sgm_pass": 0, "wta_lr": 0,
             "sweep_labels": 0, "sweep_propagate": 0, "cost_down": 0,
             "sgm_pass_i16": 0, "wta_lr3": 0, "transpose_vol": 0,
             "transpose_leading": 0, "transpose_dhw": 0, "sgbm_tile": 0,
-            "tile_down": 0, "tile_horiz": 0, "tile_up_wta": 0, "tile_lr": 0,
             "agg_down": 0, "agg_horiz": 0, "agg_up_wta": 0,
             "agg_up_wta_mirror": 0, "agg_lr": 0}
 # the up sweep's launch plans, by csrc/tile_sgm.cu's PLAN_* numbers
@@ -543,7 +541,7 @@ def sgbm_staged_cuda(left: torch.Tensor, right: torch.Tensor,
                                     apply_speckle)
     disp = wta_lr3(S_down, S_up, S_h, params, apply_lr)
     del C, S_down, S_h, S_up
-    return _speckle(disp, params) if apply_speckle else disp
+    return remove_speckles(disp, params) if apply_speckle else disp
 
 
 def tile_bias(params: SGBMParams) -> Optional[int]:
@@ -571,115 +569,6 @@ def _agg_scratch(lib, C: torch.Tensor) -> torch.Tensor:
     return torch.zeros(n, dtype=torch.int16, device=C.device)
 
 
-def _require_slab(C: torch.Tensor, params: SGBMParams, name: str,
-                  S_dh: Optional[torch.Tensor] = None) -> None:
-    """A (1, M, W, D) int16 slab, and S_dh of its shape where given."""
-    kernels.require(C, torch.int16, 4, name)
-    if C.shape[0] != 1 or C.shape[3] != params.num_disparities:
-        raise ValueError(f"{name}: need a (1, M, W, "
-                         f"{params.num_disparities}) slab, got "
-                         f"{tuple(C.shape)}")
-    if S_dh is not None:
-        kernels.require(S_dh, torch.int16, 4, "S_dh")
-        if S_dh.shape != C.shape:
-            raise ValueError(f"shape mismatch {tuple(C.shape)} "
-                             f"{tuple(S_dh.shape)}")
-
-
-def tile_down(C: torch.Tensor, params: SGBMParams, top_halo: int,
-              bias: int) -> torch.Tensor:
-    """(1, M, W, D) int16 slab -> (1, M - top_halo, W, D) int16 S_dh: the
-    down-going paths over all M rows minus ``bias``, on the rows below the
-    top halo (``plain.tile_down_sum``), from the down sweep of
-    csrc/tile_sgm.cu. The caller keeps S_dh within int16 (``tile_bias``)."""
-    if not kernels.on_cuda(C):
-        return plain.tile_down_sum(C, params, top_halo, bias).to(torch.int16)
-    _require_slab(C, params, "C")
-    _, M, W, D = C.shape
-    S = torch.empty((1, M - top_halo, W, D), dtype=torch.int16,
-                    device=C.device)
-    lib = kernels.load()
-    scratch = _agg_scratch(lib, C)
-    rc = lib.sdr_tile_down(C.data_ptr(), S.data_ptr(), scratch.data_ptr(), M,
-                           W, D, top_halo, int(bias), params.P1, params.P2,
-                           len(plain.down_dirs(params.num_paths)),
-                           kernels.stream())
-    kernels.check(rc, "tile_down")
-    LAUNCHES["tile_down"] += 1
-    return S
-
-
-def tile_horiz(C_body: torch.Tensor, S_dh: torch.Tensor,
-               params: SGBMParams) -> None:
-    """Both horizontal paths over the (1, R, W, D) int16 body rows added
-    into S_dh in place (``plain.tile_horizontal``), from the horizontal
-    sweep of csrc/tile_sgm.cu."""
-    if not kernels.on_cuda(C_body, S_dh):
-        S_dh.copy_(plain.tile_horizontal(C_body, S_dh, params))
-        return
-    _require_slab(C_body, params, "C_body", S_dh)
-    _, R, W, D = C_body.shape
-    rc = kernels.load().sdr_tile_horiz(C_body.data_ptr(), S_dh.data_ptr(), R,
-                                       W, D, params.P1, params.P2,
-                                       kernels.stream())
-    kernels.check(rc, "tile_horiz")
-    LAUNCHES["tile_horiz"] += 1
-
-
-def _tile_up(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
-             bias: int, local: int, lr: bool
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the up sweep with the WTA on CUDA body rows: the (1, local, W)
-    disparity before the LR check and, with ``lr``, the per-row winner
-    scatter (local, W) int32 that the LR pass reads."""
-    _require_slab(C_body, params, "C_body", S_dh)
-    _, R, W, D = C_body.shape
-    out = torch.empty((1, local, W), dtype=torch.float32, device=C_body.device)
-    d2p = torch.empty((local, W) if lr else (1,), dtype=torch.int32,
-                      device=C_body.device)
-    lib = kernels.load()
-    scratch = _agg_scratch(lib, C_body)
-    plan = ctypes.c_int(0)
-    rc = lib.sdr_tile_up_wta(
-        C_body.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
-        scratch.data_ptr(), R, W, D, local, int(bias), params.P1, params.P2,
-        len(plain.up_dirs(params.num_paths)), params.min_disparity,
-        params.uniqueness_ratio, int(params.quantize_16), int(lr),
-        ctypes.addressof(plan), kernels.stream())
-    kernels.check(rc, "tile_up_wta")
-    LAUNCHES["tile_up_wta"] += 1
-    _count_plan(plan)
-    return out, d2p
-
-
-def _tile_lr(out: torch.Tensor, d2p: torch.Tensor,
-             params: SGBMParams) -> None:
-    """Launch the LR pass on ``_tile_up``'s outputs, in place."""
-    _, local, W = out.shape
-    rc = kernels.load().sdr_tile_lr(out.data_ptr(), d2p.data_ptr(), local, W,
-                                    params.num_disparities,
-                                    params.min_disparity,
-                                    params.disp12_max_diff, kernels.stream())
-    kernels.check(rc, "tile_lr")
-    LAUNCHES["tile_lr"] += 1
-
-
-def tile_up_wta(C_body: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
-                bias: int, local: int, apply_lr: bool = True) -> torch.Tensor:
-    """(1, R, W, D) int16 body rows and S_dh -> (1, local, W) float32
-    disparity of the first ``local`` rows, -1.0 where invalid: the up-going
-    paths from the last row, fused with the WTA on S_dh + bias + L_up
-    (``plain.tile_up_wta``), then the LR pass; csrc/tile_sgm.cu."""
-    if not kernels.on_cuda(C_body, S_dh):
-        return plain.tile_up_wta(C_body, S_dh, params, bias,
-                                 apply_lr)[..., :local, :]
-    lr = apply_lr and params.disp12_max_diff >= 0
-    out, d2p = _tile_up(C_body, S_dh, params, bias, local, lr)
-    if lr:
-        _tile_lr(out, d2p, params)
-    return out
-
-
 def _sgbm_tile_i32(C: torch.Tensor, params: SGBMParams, top_halo: int,
                    apply_lr: bool) -> torch.Tensor:
     """The int32 route: the down-going K2 passes over all M rows into an
@@ -701,23 +590,27 @@ def sgbm_tile_cuda(C: torch.Tensor, params: SGBMParams, top_halo: int = 0,
     """``plain.sgbm_tile`` of a (1, M, W, D) int16 cost slab, M = top_halo
     + local + bottom_halo -> (1, local, W) float32 disparity, -1.0 where
     invalid. Where ``tile_bias`` gives a bias, the three sweeps of
-    csrc/tile_sgm.cu on an int16 S_dh (``tile_down``, ``tile_horiz``,
-    ``tile_up_wta``); where it gives None, K2 x8 into an int32 S and K3
-    (``_sgbm_tile_i32``). One frame a call: a row slice of a batch of
-    frames is not contiguous, one of a single frame is."""
+    csrc/tile_sgm.cu on an int16 S_dh (``agg_down`` with the top halo,
+    ``agg_horiz``, ``agg_up_wta`` of the local rows); where it gives None,
+    K2 x8 into an int32 S and K3 (``_sgbm_tile_i32``). One frame a call: a
+    row slice of a batch of frames is not contiguous, one of a single
+    frame is."""
     if not kernels.on_cuda(C):
         return plain.sgbm_tile(C, params, top_halo, bottom_halo, apply_lr)
     _check_params(params, C)
-    _require_slab(C, params, "C")
+    _require_batch(C, params, "C")
+    if C.shape[0] != 1:
+        raise ValueError(f"C: need a (1, M, W, {params.num_disparities}) "
+                         f"slab, got {tuple(C.shape)}")
     local = plain._tile_local(C.shape[1], params, top_halo, bottom_halo)
     bias = tile_bias(params)
     if bias is None:
         disp = _sgbm_tile_i32(C, params, top_halo, apply_lr)[:, :local]
     else:
-        S_dh = tile_down(C, params, top_halo, bias)
+        S_dh = agg_down(C, params, bias, top_halo)
         body = C[:, top_halo:]
-        tile_horiz(body, S_dh, params)
-        disp = tile_up_wta(body, S_dh, params, bias, local, apply_lr)
+        agg_horiz(body, S_dh, params)
+        disp = agg_up_wta(body, S_dh, params, bias, apply_lr, local=local)
     LAUNCHES["sgbm_tile"] += 1
     return disp
 
@@ -771,21 +664,24 @@ def _require_batch(C: torch.Tensor, params: SGBMParams, name: str,
                              f"{tuple(S_dh.shape)}")
 
 
-def agg_down(C: torch.Tensor, params: SGBMParams, bias: int) -> torch.Tensor:
-    """(B, H, W, D) int16 cost volume -> int16 S_dh of its shape: the
-    down-going paths (``plain.down_dirs``) minus ``bias`` (the plain
-    ``tile_down_sum`` of each frame), from the down sweep of
-    csrc/tile_sgm.cu over the whole batch. The caller keeps S_dh within
-    int16 (``tile_bias``)."""
+def agg_down(C: torch.Tensor, params: SGBMParams, bias: int,
+             top_halo: int = 0) -> torch.Tensor:
+    """(B, H, W, D) int16 cost volume -> (B, H - top_halo, W, D) int16
+    S_dh: the down-going paths (``plain.down_dirs``) over all H rows minus
+    ``bias``, on the rows below the top halo, which only warm the paths up
+    (a tile's, for K9; ``plain.tile_down_sum`` of each frame), from the
+    down sweep of csrc/tile_sgm.cu over the whole batch. The caller keeps
+    S_dh within int16 (``tile_bias``)."""
     if not kernels.on_cuda(C):
-        return plain.tile_down_sum(C, params, 0, bias).to(torch.int16)
+        return plain.tile_down_sum(C, params, top_halo, bias).to(torch.int16)
     _require_batch(C, params, "C")
     B, H, W, D = C.shape
-    S = torch.empty_like(C)
+    S = torch.empty((B, H - top_halo, W, D), dtype=torch.int16,
+                    device=C.device)
     lib = kernels.load()
     scratch = _agg_scratch(lib, C)
     rc = lib.sdr_agg_down(C.data_ptr(), S.data_ptr(), scratch.data_ptr(), B,
-                          H, W, D, int(bias), params.P1, params.P2,
+                          H, W, D, top_halo, int(bias), params.P1, params.P2,
                           len(plain.down_dirs(params.num_paths)),
                           kernels.stream())
     kernels.check(rc, "agg_down")
@@ -803,36 +699,38 @@ def agg_horiz(C: torch.Tensor, S_dh: torch.Tensor,
         return
     _require_batch(C, params, "C", S_dh)
     B, H, W, D = C.shape
-    rc = kernels.load().sdr_tile_horiz(C.data_ptr(), S_dh.data_ptr(), B * H,
-                                       W, D, params.P1, params.P2,
-                                       kernels.stream())
+    rc = kernels.load().sdr_agg_horiz(C.data_ptr(), S_dh.data_ptr(), B * H,
+                                      W, D, params.P1, params.P2,
+                                      kernels.stream())
     kernels.check(rc, "agg_horiz")
     LAUNCHES["agg_horiz"] += 1
 
 
 def _agg_up(C: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
-            bias: int, lr: bool, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the batch up sweep with the WTA on CUDA volumes: the (B, H, W)
-    disparity before the LR check and, with ``lr``, the (B, H, W) int32
-    winner scatter that the LR pass reads; frames from ``m`` on
-    mirrored."""
+            bias: int, lr: bool, m: int, local: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the batch up sweep with the WTA on CUDA volumes: the (B,
+    local, W) disparity of each frame's first ``local`` rows before the LR
+    check and, with ``lr``, the (B, local, W) int32 winner scatter that the
+    LR pass reads; frames from ``m`` on mirrored."""
     _require_batch(C, params, "C", S_dh)
     if params.min_disparity < 0:
         raise ValueError("the batch sweeps need min_disparity >= 0, got "
                          f"{params.min_disparity}")
     B, H, W, D = C.shape
-    out = torch.empty((B, H, W), dtype=torch.float32, device=C.device)
-    d2p = torch.empty((B, H, W) if lr else (1,), dtype=torch.int32,
+    out = torch.empty((B, local, W), dtype=torch.float32, device=C.device)
+    d2p = torch.empty((B, local, W) if lr else (1,), dtype=torch.int32,
                       device=C.device)
     lib = kernels.load()
     scratch = _agg_scratch(lib, C)
     plan = ctypes.c_int(0)
     rc = lib.sdr_agg_up_wta(
         C.data_ptr(), S_dh.data_ptr(), out.data_ptr(), d2p.data_ptr(),
-        scratch.data_ptr(), B, H, W, D, int(bias), params.P1, params.P2,
-        len(plain.up_dirs(params.num_paths)), params.min_disparity,
-        params.uniqueness_ratio, int(params.quantize_16), int(lr), m,
-        ctypes.addressof(plan), kernels.stream())
+        scratch.data_ptr(), B, H, W, D, local, int(bias), params.P1,
+        params.P2, len(plain.up_dirs(params.num_paths)),
+        params.min_disparity, params.uniqueness_ratio,
+        int(params.quantize_16), int(lr), m, ctypes.addressof(plan),
+        kernels.stream())
     name = "agg_up_wta" if m == B else "agg_up_wta_mirror"
     kernels.check(rc, name)
     LAUNCHES[name] += 1
@@ -855,24 +753,27 @@ def _agg_lr(out: torch.Tensor, d2p: torch.Tensor, params: SGBMParams,
 
 def agg_up_wta(C: torch.Tensor, S_dh: torch.Tensor, params: SGBMParams,
                bias: int, apply_lr: bool = True,
-               mirror_from: Optional[int] = None) -> torch.Tensor:
-    """(B, H, W, D) int16 cost volume and S_dh -> (B, H, W) float32
-    disparity, -1.0 where invalid: the up-going paths fused with the WTA on
-    S_dh + bias + L_up (``plain.tile_up_wta`` of each frame), then the LR
-    pass; csrc/tile_sgm.cu over the whole batch. Frames from
-    ``mirror_from`` on (None: none) are right-matcher volumes in
-    un-mirrored orientation and get the mirrored WTA/LR."""
-    B = C.shape[0]
+               mirror_from: Optional[int] = None,
+               local: Optional[int] = None) -> torch.Tensor:
+    """(B, H, W, D) int16 cost volume and S_dh -> (B, local, W) float32
+    disparity of each frame's first ``local`` rows (None: all H; K9 passes
+    its tile's rows), -1.0 where invalid: the up-going paths from the last
+    row, fused with the WTA on S_dh + bias + L_up (``plain.tile_up_wta``
+    of each frame), then the LR pass; csrc/tile_sgm.cu over the whole
+    batch. Frames from ``mirror_from`` on (None: none) are right-matcher
+    volumes in un-mirrored orientation and get the mirrored WTA/LR."""
+    B, H = C.shape[:2]
     m = B if mirror_from is None else mirror_from
     if not 0 <= m <= B:
         raise ValueError(f"mirror_from must be in [0, {B}], got {m}")
+    local = H if local is None else local
     if not kernels.on_cuda(C, S_dh):
         return torch.cat([plain.tile_up_wta(C[a:b], S_dh[a:b], params, bias,
                                             apply_lr, mirror_lr=mirror)
                           for a, b, mirror in ((0, m, False), (m, B, True))
-                          if b > a])
+                          if b > a])[..., :local, :]
     lr = apply_lr and params.disp12_max_diff >= 0
-    out, d2p = _agg_up(C, S_dh, params, bias, lr, m)
+    out, d2p = _agg_up(C, S_dh, params, bias, lr, m, local)
     if lr:
         _agg_lr(out, d2p, params, m)
     return out
@@ -911,7 +812,7 @@ def sgbm_cuda(left: torch.Tensor, right: torch.Tensor,
                                     apply_lr, apply_speckle)
     disp = aggregate_wta(C, params, apply_lr, fused_wta=fused_wta)
     del C
-    return _speckle(disp, params) if apply_speckle else disp
+    return remove_speckles(disp, params) if apply_speckle else disp
 
 
 def _sobel_pair(left: torch.Tensor, right: torch.Tensor, params: SGBMParams
@@ -924,8 +825,12 @@ def _sobel_pair(left: torch.Tensor, right: torch.Tensor, params: SGBMParams
             plain.sobel_clip(right, cap).contiguous())
 
 
-def _speckle(disp: torch.Tensor, params: SGBMParams) -> torch.Tensor:
-    """The speckle filter with disp >= 0 as the validity mask: right on
+def remove_speckles(disp: torch.Tensor, params: SGBMParams
+                    ) -> torch.Tensor:
+    """(B, H, W) float32 disparity -> the same with every component (4-
+    connected, neighbours within ``speckle_range``) of at most
+    ``speckle_window_size`` pixels set to -1.0, none where that is 0: the
+    speckle filter with disp >= 0 as the validity mask, right on
     CUDA maps (the kernels refuse a negative min_disparity) and for the
     pair (min_disparity 0). ``sgbm_cuda`` and ``sgbm_staged_cuda`` on CPU
     tensors take ``plain.wta_lr_speckle`` instead, which keeps the WTA/LR
@@ -959,5 +864,5 @@ def sgbm_pair_cuda(left: torch.Tensor, right: torch.Tensor,
     C = cost_volume_pair(lt, rt, params)
     disp = aggregate_wta(C, params, mirror_from=B, fused_wta=fused_wta)
     del C
-    disp = _speckle(disp, params)
+    disp = remove_speckles(disp, params)
     return disp[:B], disp[B:]

@@ -532,7 +532,7 @@ def sgbm_sharded(left, right, params: SGBMParams, mesh: DeviceMesh,
     disp = _gather_rows(_match(left, right, params, m, H // m.n_tile, halo,
                                exact, kernel), m)
     if apply_speckle:
-        disp = sc._speckle(disp[None], params)[0]
+        disp = sc.remove_speckles(disp[None], params)[0]
     return disp
 
 
@@ -589,7 +589,7 @@ def pipeline_step_sharded(lefts, rights, rig_Q, params: SGBMParams,
                 max_disp=params.num_disparities + params.min_disparity)
             disp = filtered[0]
         if apply_speckle:
-            disp = sc._speckle(disp[None], params)[0]
+            disp = sc.remove_speckles(disp[None], params)[0]
         xyz = reproject_to_3d(disp[rows], Q, scale=scale,
                               row_offset=m.tile * h_local)
         disps.append(disp)

@@ -88,25 +88,17 @@ _SIGNATURES = {
     "sdr_radix_scratch_size": [_I, _I],
     # skey, sidx, out, B, N, n_out, mode, max_size, L, slots, stream
     "sdr_sorted_runs": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # C, S, scratch, M, W, D, top, bias, P1, P2, ndir, stream
-    "sdr_tile_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # C, S, R, W, D, P1, P2, stream
-    "sdr_tile_horiz": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # C, S, out, d2p, scratch, R, W, D, local, bias, P1, P2, ndir, md,
-    # uniq, quant16, lr, plan (int *, out), stream
-    "sdr_tile_up_wta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P, _P],
-    # out, d2p, local, W, D, md, disp12, stream
-    "sdr_tile_lr": [_P, _P, _I, _I, _I, _I, _I, _P],
     # B, W, D -> int16 entries of zeroed scratch one sweep over B frames
-    # (or a tile's slab) needs (a long long; -1 for bad arguments)
+    # (B = 1: a tile's slab) needs (a long long; -1 for bad arguments)
     "sdr_agg_scratch_size": [_I, _I, _I],
-    # C, S, scratch, B, H, W, D, bias, P1, P2, ndir, stream
-    "sdr_agg_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # C, S, out, d2p, scratch, B, H, W, D, bias, P1, P2, ndir, md, uniq,
-    # quant16, lr, mirror_from, plan (int *, out), stream
+    # C, S, scratch, B, H, W, D, top, bias, P1, P2, ndir, stream
+    "sdr_agg_down": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # C, S, R, W, D, P1, P2, stream
+    "sdr_agg_horiz": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # C, S, out, d2p, scratch, B, H, W, D, local, bias, P1, P2, ndir, md,
+    # uniq, quant16, lr, mirror_from, plan (int *, out), stream
     "sdr_agg_up_wta": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _P, _P],
+                       _I, _I, _I, _I, _I, _I, _P, _P],
     # up, plan, B, W, D, info (int[8], out): a sweep's launch plan
     "sdr_sweep_plan": [_I, _I, _I, _I, _I, _P],
     # out, d2p, B, H, W, D, md, disp12, mirror_from, stream

@@ -808,9 +808,9 @@ def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
             if bias is None:
                 assert ran == {"sgm_pass": 8, "wta_lr": 1, "sgbm_tile": 1}
             else:
-                assert ran == {"tile_down": 1, "tile_horiz": 1,
-                               "tile_up_wta": 1, "sgbm_tile": 1,
-                               **({"tile_lr": 1} if apply_lr else {})}
+                assert ran == {"agg_down": 1, "agg_horiz": 1,
+                               "agg_up_wta": 1, "sgbm_tile": 1,
+                               **({"agg_lr": 1} if apply_lr else {})}
             want = plain.sgbm_tile(slab, params, top, bottom, apply_lr)
             assert got.shape == want.shape == (
                 1, slab.shape[1] - top - bottom, W)
@@ -820,13 +820,17 @@ def test_sgbm_tile_matches_plain(cuda, H, W, kw, top, bottom):
                     :, :got.shape[1]], got)
     if bias is not None:
         slab = slabs[0]
-        S = sc.tile_down(slab, params, top, bias)
+        S = sc.agg_down(slab, params, bias, top)
         assert torch.equal(S.float(), plain.tile_down_sum(slab, params, top,
                                                           bias))
         body = slab[:, top:]
         want = plain.tile_horizontal(body, S, params)
-        sc.tile_horiz(body, S, params)
+        sc.agg_horiz(body, S, params)
         assert torch.equal(S.float(), want)
+        # the top halo over a batch: each frame's S_dh starts below it
+        two = torch.cat([slab, slab.flip(2).contiguous()])
+        assert torch.equal(sc.agg_down(two, params, bias, top).float(),
+                           plain.tile_down_sum(two, params, top, bias))
 
 
 def batch_pair(B, H, W, D, seed):
@@ -1047,7 +1051,7 @@ def test_sharded_world_of_one_matches_sgbm_cuda(cuda, tmp_path, block):
     want = sc.sgbm_cuda(left[None], right[None], params, fused_wta=False)[0]
     assert torch.equal(got, want)
     tile = ({"sgm_pass", "wta_lr"} if block == 7 else
-            {"tile_down", "tile_horiz", "tile_up_wta", "tile_lr"})
+            {"agg_down", "agg_horiz", "agg_up_wta", "agg_lr"})
     assert {k for k, v in launches.items() if v} == {
         "cost_box", "sgbm_tile", "speckle_labels", "speckle_keep", *tile}
     if block == 7:

@@ -1,6 +1,7 @@
 """The tile matcher's biased route (ops/sgbm.py: tile_down_sum,
 tile_horizontal, tile_up_wta, sgbm_tile_biased; ops/sgbm_cuda.py:
-tile_bias and the CPU path of its stage wrappers) against the JAX
+tile_bias and the CPU path of the sweeps' wrappers agg_down, agg_horiz
+and agg_up_wta, which K9 calls on a slab of one frame) against the JAX
 package's own pieces of ``sgbm_tile_pallas`` in interpret mode:
 ``_wta_bias``, ``directional_pass_pallas(..., acc=..., out_offset=-bias)``
 and ``up_wta_pallas(C_body, S_dh, None, params, sd_offset=bias)``.
@@ -126,11 +127,18 @@ ROUTES = [(c, h) for c in ("8p-b5", "4p-b7") for h in HALOS] + [
     ("8p-b3", (8, 8))]
 
 
-@pytest.mark.parametrize("case,halos", ROUTES)
-def test_down_stage_matches_pallas(case, halos):
+@pytest.mark.parametrize(
+    "case,halos,frames",
+    [pytest.param(c, h, 1, id=f"{c}-halos{i}")
+     for i, (c, h) in enumerate(ROUTES)]
+    + [pytest.param("8p-b5", (8, 8), 2, id="8p-b5-halos1-2frames")])
+def test_down_stage_matches_pallas(case, halos, frames):
     """The biased down sum, the plain version and the wrapper's CPU path
     (int16), equal to ``directional_pass_pallas(..., acc=0,
-    out_offset=-bias)`` on the rows below the top halo."""
+    out_offset=-bias)`` on the rows below the top halo. With two frames the
+    wrapper takes the slab and its mirror image (columns reversed) at once;
+    the down-going paths map onto each other under the mirror, so the
+    second frame's sum is the first one's, mirrored."""
     top, bottom = halos
     bias, ref = jax_pieces(case, top, bottom)
     params = params_of(*CASES[case])
@@ -139,8 +147,12 @@ def test_down_stage_matches_pallas(case, halos):
     want = mwd(ref["down"])[top:]
     got = ts.tile_down_sum(C, params, top, bias)
     assert torch.equal(got, want.to(torch.float32))
-    got16 = sc.tile_down(C[None], params, top, sc.tile_bias(params))
-    assert got16.dtype == torch.int16 and torch.equal(got16[0], want)
+    batch = torch.stack([C, C.flip(1)][:frames])
+    got16 = sc.agg_down(batch, params, sc.tile_bias(params), top)
+    assert got16.dtype == torch.int16 and got16.shape[0] == frames
+    assert torch.equal(got16[0], want)
+    if frames == 2:
+        assert torch.equal(got16[1], want.flip(1))
 
 
 @pytest.mark.parametrize("case,halos", ROUTES)
@@ -155,8 +167,8 @@ def test_horizontal_stage_matches_pallas(case, halos):
     S = ts.tile_horizontal(C[top:], ts.tile_down_sum(C, params, top, bias),
                            params)
     assert torch.equal(S, want.to(torch.float32))
-    S16 = sc.tile_down(C[None], params, top, int(bias))
-    sc.tile_horiz(C[None, top:], S16, params)
+    S16 = sc.agg_down(C[None], params, int(bias), top)
+    sc.agg_horiz(C[None, top:], S16, params)
     assert torch.equal(S16[0], want)
 
 
@@ -174,8 +186,8 @@ def test_up_wta_stage_matches_pallas(case, halos, apply_lr):
     want = torch.tensor(ref[f"up_wta_{apply_lr}"])
     got = ts.tile_up_wta(C[top:], S_dh, params, bias, apply_lr)
     assert torch.equal(got, want)
-    got = sc.tile_up_wta(C[None, top:], S_dh[None], params, int(bias), LOCAL,
-                         apply_lr)
+    got = sc.agg_up_wta(C[None, top:], S_dh[None], params, int(bias),
+                        apply_lr, local=LOCAL)
     assert torch.equal(got[0], want[:LOCAL])
 
 
@@ -194,9 +206,10 @@ def test_biased_route_matches_sgbm_tile_pallas(case, halos, apply_lr):
     got = ts.sgbm_tile_biased(C, params, bias, top, bottom, apply_lr)
     assert torch.equal(got, want)
     assert torch.equal(ts.sgbm_tile(C, params, top, bottom, apply_lr), want)
-    S = sc.tile_down(C[None], params, top, int(bias))
-    sc.tile_horiz(C[None, top:], S, params)
-    got = sc.tile_up_wta(C[None, top:], S, params, int(bias), LOCAL, apply_lr)
+    S = sc.agg_down(C[None], params, int(bias), top)
+    sc.agg_horiz(C[None, top:], S, params)
+    got = sc.agg_up_wta(C[None, top:], S, params, int(bias), apply_lr,
+                        local=LOCAL)
     assert torch.equal(got[0], want)
 
 
@@ -221,14 +234,14 @@ def test_s_dh_at_the_int16_edge(paths):
     C = np.full((M, W, D), cmax, np.int16)
     C[np.arange(M)[:, None], np.arange(W)[None], rng.integers(0, D, (M, W))] = 0
     C = torch.tensor(C)
-    S16 = sc.tile_down(C[None], params, top, bias)
+    S16 = sc.agg_down(C[None], params, bias, top)
     want = ts.tile_down_sum(C, params, top, 0.0)
     assert torch.equal(S16[0].to(torch.float32) + bias, want)
-    sc.tile_horiz(C[None, top:], S16, params)
+    sc.agg_horiz(C[None, top:], S16, params)
     want = ts.tile_horizontal(C[top:], want, params)
     assert torch.equal(S16[0].to(torch.float32) + bias, want)
     assert float(want.max()) == max_sum and float(want.min()) >= 0
     assert int(S16.max()) == max_sum - bias <= sc.I16_MAX
     assert int(S16.min()) >= -bias >= -sc.I16_MAX
-    got = sc.tile_up_wta(C[None, top:], S16, params, bias, LOCAL)
+    got = sc.agg_up_wta(C[None, top:], S16, params, bias, local=LOCAL)
     assert torch.equal(got[0], ts.sgbm_tile(C, params, top, bottom))

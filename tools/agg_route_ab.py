@@ -28,12 +28,12 @@ given), and holds every plan's output to the chosen one's bit for bit.
 A plan that cannot launch at a shape (shared memory past the card's) is
 printed as such.
 
-``--k9`` times K9's one-frame sweeps (``tile_down``, ``tile_horiz``,
-``tile_up_wta`` with its LR pass, and ``sgbm_tile_cuda``) on a
-1x720x1280x128 and a 1x1440x2560x256 slab; ``--root DIR`` imports the
-package from DIR (an unpacked checkout), so that two trees are timed in
-turns, one process each. Every line names the card and its power limit.
-It needs a CUDA card and nvcc.
+``--k9`` times K9's one-frame sweeps (``agg_down``, ``agg_horiz``,
+``agg_up_wta`` with its LR pass, on a slab as K9 calls them, and
+``sgbm_tile_cuda``) on a 1x720x1280x128 and a 1x1440x2560x256 slab;
+``--root DIR`` imports the package from DIR (an unpacked checkout), so
+that two trees are timed in turns, one process each. Every line names
+the card and its power limit. It needs a CUDA card and nvcc.
 """
 
 import argparse
@@ -189,8 +189,8 @@ def plans(reps, name, shapes):
         sc.agg_horiz(C, S, params)
         sweeps = {
             "agg_down": lambda: sc.agg_down(C, params, bias),
-            "agg_up_wta": lambda: sc._agg_up(C, S, params, bias, True,
-                                             B)[0],
+            "agg_up_wta": lambda: sc._agg_up(C, S, params, bias, True, B,
+                                             H)[0],
         }
         for sweep, fn in sweeps.items():
             want, got = fn(), None
@@ -234,15 +234,14 @@ def k9(reps, name):
         params = SGBMParams(num_disparities=D, speckle_window_size=0)
         C = volume(1, H, W, D, params)
         bias = sc.tile_bias(params)
-        S = sc.tile_down(C, params, 0, bias)
+        S = sc.agg_down(C, params, bias)
         # the horizontal sweep timed on a copy it adds into over and over;
         # the up sweep on S_dh with both horizontal paths added once
         S_h = S.clone()
-        sc.tile_horiz(C, S, params)
-        fns = {"tile_down": lambda: sc.tile_down(C, params, 0, bias),
-               "tile_horiz": lambda: sc.tile_horiz(C, S_h, params),
-               "tile_up_wta+lr": lambda: sc.tile_up_wta(C, S, params, bias,
-                                                        H),
+        sc.agg_horiz(C, S, params)
+        fns = {"agg_down": lambda: sc.agg_down(C, params, bias),
+               "agg_horiz": lambda: sc.agg_horiz(C, S_h, params),
+               "agg_up_wta+lr": lambda: sc.agg_up_wta(C, S, params, bias),
                "sgbm_tile": lambda: sc.sgbm_tile_cuda(C, params)}
         for k, fn in fns.items():
             ms = in_turns([fn], reps)[0]
