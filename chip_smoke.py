@@ -53,7 +53,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    K4-K7 timed (K5 beside scatter_add_, its histogram alone; K7 in turns
    with torch.gather, the gather alone), and
    K4's and K5's three launches each timed apart (CUDA events between
-   them, through speckle.cu's part entries); then torch.profiler traces
+   them, through speckle.cu's part entries); K6 on the WLS inputs of one
+   frame and of eight, rows and columns apart, bitwise at each of the
+   three lambdas and timed beside its bound; then torch.profiler traces
    three batches of the
    full path for the device time per kernel and the device's busy share;
    the full path launches exactly K1-K7;
@@ -357,8 +359,9 @@ def phase_build():
     # the sorted-run kernel: sizes, keep (runs_sizes<mode>) and roots
     log("ptxas: sorted_runs " + ", ".join(ptxas_named(
         ptxas, r"(runs_sizes|runs_roots)(?:ILi(\d)E)?")))
-    log("ptxas: K6 " + ", ".join(f"{name} {n} registers, {sp} B spilled"
-                                 for name, _, n, sp in entries
+    # K6 by <lines a block, rows>
+    log("ptxas: K6 " + ", ".join(f"{name}<{t}> {n} registers, {sp} B spilled"
+                                 for name, t, n, sp in entries
                                  if name == "fgs_pass_kernel"))
     # cost_down at every <BLOCK, words per lane>; registers are capped, so
     # the spills are what to watch (<5,2> is the timed 128-disparity one)
@@ -813,6 +816,41 @@ def check_wls(dl, dr, guide, max_disp, errs, tag):
         raise AssertionError(f"WLS kernels off their plain versions ({tag}):"
                              f" shift_gather {e_sg}, fgs_pass {e_fgs}")
     return plain.filtered_disparity(u), rhs[:, 1]
+
+
+def fgs_by_batch(card, errs, rhs, guide, reps=20):
+    """K6 on the full path's WLS inputs at batch one and at batch eight,
+    each axis at each of the filter's lambdas against its plain version,
+    bitwise; each axis timed with CUDA events at the first lambda beside
+    its bound and its plain version's time, with the plan it took."""
+    import torch
+    from stereo_depth_ruler_tpu_torch.ops import wls as plain
+    from stereo_depth_ruler_tpu_torch.ops import wls_cuda as wc
+    for B in (1, 8):
+        u, g = rhs[:B].contiguous(), guide[:B].contiguous()
+        px = B * g.shape[1] * g.shape[2]
+        for axis, name in ((-1, "rows"), (-2, "columns")):
+            err = 0.0
+            wc.reset_fgs_plans()
+            for lam in plain.fgs_lambdas(8000.0, 3):
+                got = wc.fgs_pass(u, g, lam, 1.1, axis)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_err(
+                    got, plain.fgs_pass(u, g, lam, 1.1, axis)))
+            plan = [k for k, v in wc.FGS_PLANS.items() if v]
+            lam = plain.fgs_lambdas(8000.0, 3)[0]
+            ms = cuda_ms(lambda: wc.fgs_pass(u, g, lam, 1.1, axis), reps)
+            plain_ms = cuda_ms(lambda: plain.fgs_pass(u, g, lam, 1.1, axis),
+                               1)
+            bms, by = bound(20 * px, 23 * px)
+            log(f"fgs_pass [{card}] batch {B} {tuple(g.shape[1:])} {name}: "
+                f"kernel {ms:.4f} ms ({'/'.join(plan)}), plain "
+                f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by}) per launch; "
+                f"max|err| vs plain {err} over the three lambdas")
+            errs["fgs_pass"] = max(errs.get("fgs_pass", 0.0), err)
+            if err:
+                raise AssertionError(f"K6 off its plain version at batch {B}"
+                                     f", {name}: {err}")
 
 
 def _noisy_disp(B, H, W, seed):
@@ -1340,10 +1378,9 @@ def phase_full_path(card, errs, frames):
                              sum(gather) / 2)
     px2, px = 2 * B * H * W, B * H * W
     # K6 per pixel and launch, counted from the Thomas solve (once per
-    # element, though the kernel's two right-hand-side threads each repeat
-    # the shared part): the weight 4 (subtract, abs, divide, exp), the
-    # coefficients 4, the elimination 11 (den 2, the reciprocal, c' 2, each
-    # of the two d' 3) and back substitution 4
+    # element, as the kernel computes it): the weight 4 (subtract, abs,
+    # divide, exp), the coefficients 4, the elimination 11 (den 2, the
+    # reciprocal, c' 2, each of the two d' 3) and back substitution 4
     bounds = {
         "speckle_labels": bound(8 * px2, 4 * px2),
         "speckle_keep": bound(12 * px2, 3 * px2),
@@ -1358,6 +1395,7 @@ def phase_full_path(card, errs, frames):
             f"{plain_ms:.3f} ms{lib}, bound {bounds[name][0]:.4f} ms "
             f"({bounds[name][1]}) per launch")
     speckle_split(card, dm, r, ws)
+    fgs_by_batch(card, errs, rhs, lrect)
     # the outputs go to the host, so that the shared path's peak memory
     # is its own; the matcher maps and their labels feed the sort family
     return launches, times, bounds, (pipe, {k: v.cpu() for k, v in

@@ -7,17 +7,22 @@ wls_disparity_filter_pallas``:
   disparity at x - round(dl), the LR confidence, and the stacked
   right-hand sides (conf·max(dl, 0), conf), in one pass;
 - K6 ``fgs_pass`` (csrc/fgs_pass.cu): one FGS sweep, rows or columns, of
-  both right-hand sides: weights, tridiagonal coefficients and the
-  Thomas solve from both ends of each line, a thread per half line and
-  right-hand side. Six launches per filter (3 iterations x 2 axes).
+  both right-hand sides: the Thomas solve from both ends of each line, a
+  thread per half line that runs only the recurrence, fed by producer
+  warps that stage the guide and the right-hand sides and compute the
+  weights ahead of it. Six launches per filter (3 iterations x 2 axes).
 
 Each wrapper dispatches on the device of its input: a CPU tensor gets the
 plain version of ``ops/wls.py``; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts kernel launches per wrapper.
+raises. ``LAUNCHES`` counts kernel launches per wrapper; ``FGS_PLANS``
+counts K6's launches by the lines a block its entry reports it took: 8,
+or 4 in a row pass whose rows would leave multiprocessors without a
+block of 8.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -25,15 +30,23 @@ import torch
 from ..utils import kernels
 from . import wls as plain
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "shift_gather_conf",
-           "fgs_pass", "fgs_filter_cuda", "wls_disparity_filter_cuda"]
+__all__ = ["LAUNCHES", "reset_launch_counts", "FGS_PLANS",
+           "reset_fgs_plans", "shift_gather_conf", "fgs_pass",
+           "fgs_filter_cuda", "wls_disparity_filter_cuda"]
 
 LAUNCHES = {"shift_gather": 0, "fgs_pass": 0}
+# K6's launch plans, by the lines a block csrc/fgs_pass.cu reports
+FGS_PLANS = {"lines8": 0, "lines4": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_fgs_plans() -> None:
+    for k in FGS_PLANS:
+        FGS_PLANS[k] = 0
 
 
 def shift_gather_conf(disp_left: torch.Tensor, disp_right: torch.Tensor,
@@ -77,12 +90,15 @@ def fgs_pass(u: torch.Tensor, guide: torch.Tensor, lam: float, sigma: float,
         raise ValueError(f"axis must be -1 or -2, got {axis}")
     out = torch.empty_like(u)
     cp = torch.empty_like(guide)   # the elimination's c' and a''
+    plan = ctypes.c_int(0)
     rc = kernels.load().sdr_fgs_pass(guide.data_ptr(), u.data_ptr(),
                                      out.data_ptr(), cp.data_ptr(), B, H, W,
                                      int(axis == -1), float(lam),
-                                     float(sigma), kernels.stream())
+                                     float(sigma), ctypes.addressof(plan),
+                                     kernels.stream())
     kernels.check(rc, "fgs_pass")
     LAUNCHES["fgs_pass"] += 1
+    FGS_PLANS[f"lines{plan.value}"] += 1
     return out
 
 

@@ -75,8 +75,9 @@ _SIGNATURES = {
     "sdr_speckle_keep_part": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dl, dr, rhs, B, H, W, max_s, lrc_thresh, fill, stream
     "sdr_shift_gather_conf": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    # guide, u, out, cp (scratch), B, H, W, rows, lam, sigma, stream
-    "sdr_fgs_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # guide, u, out, cp (scratch), B, H, W, rows, lam, sigma, plan (int *,
+    # out: the lines a block), stream
+    "sdr_fgs_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P],
     # disp or labels, seed (null: labels mode), out, link (scratch), flags,
     # B, H, W, max_diff, max_iters, stream
     "sdr_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],

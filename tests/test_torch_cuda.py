@@ -148,23 +148,38 @@ def test_cost_pair_band_edges(cuda, B, H, W, D, md, block):
                                                                    params)))
 
 
-@pytest.mark.parametrize("N", [1, 2, 3, 720, 1280, 7168])
-def test_fgs_pass_any_length(cuda, N):
+@pytest.mark.parametrize("B,H,W", [
+    (2, 5, 1), (2, 1, 5), (2, 5, 2), (2, 2, 5), (2, 5, 3), (2, 3, 5),
+    (2, 5, 720), (2, 720, 5), (2, 5, 1280), (2, 1280, 5), (2, 5, 7168),
+    (2, 7168, 5),
+    (1, 720, 1280), (8, 720, 1280),        # the live and the batch cells
+    (1, 33, 721), (3, 721, 33),            # lines off every plan's tile
+    (1, 45, 1278), (8, 130, 42),           # W % 4 != 0
+])
+def test_fgs_pass_any_length(cuda, B, H, W):
     """K6 (the Thomas recurrence from both ends of each line) against its
-    plain version, bitwise, along rows (lines of N) and columns (lines of
-    N), on a random and a step-edge guide."""
-    rng = np.random.default_rng(N)
-    for H, W, axis in ((5, N, -1), (N, 5, -2)):
-        rhs = torch.tensor(rng.uniform(0, 64, (2, 2, H, W)).astype(np.float32),
-                           device=cuda)
-        step = np.zeros((2, H, W), np.float32)
-        step[:, :, W // 2:] += 255.0
-        step[:, H // 2:, :] += 28.0
-        for g in (rng.uniform(0, 255, (2, H, W)).astype(np.float32), step):
+    plain version, bitwise, along rows (lines of W) and columns (lines of
+    H) of (B, 2, H, W) right-hand sides, at each of the filter's three
+    lambdas, on a random and a step-edge guide; each launch under the
+    plan that fills the card: 8 lines a block, 4 in a row pass whose B
+    frames of H rows would leave a multiprocessor without a block of 8."""
+    rng = np.random.default_rng(B * H * W)
+    rhs = torch.tensor(rng.uniform(0, 64, (B, 2, H, W)).astype(np.float32),
+                       device=cuda)
+    step = np.zeros((B, H, W), np.float32)
+    step[:, :, W // 2:] += 255.0
+    step[:, H // 2:, :] += 28.0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for axis, lines in ((-1, H), (-2, W)):
+        tile = 4 if axis == -1 and B * -(-lines // 8) < sms else 8
+        for g in (rng.uniform(0, 255, (B, H, W)).astype(np.float32), step):
             guide = torch.tensor(g, device=cuda)
             for lam in wplain.fgs_lambdas(8000.0, 3):
+                wc.reset_fgs_plans()
                 got = wc.fgs_pass(rhs, guide, lam, 1.1, axis)
                 torch.cuda.synchronize()
+                assert wc.FGS_PLANS == {k: int(k == f"lines{tile}")
+                                        for k in wc.FGS_PLANS}
                 assert torch.equal(got, wplain.fgs_pass(rhs, guide, lam, 1.1,
                                                         axis))
 
